@@ -1,0 +1,103 @@
+"""The weight bridge: JAX export files and seeded random weights.
+
+Parameters cross from the JAX package through its export format
+(``retinanet_tpu/export.py:export_model``, the ``retinanet_tpu_export_v1``
+npz keyed by flax leaf path).  The port's modules carry flax's names, so a
+leaf path maps onto a ``state_dict`` key by replacing ``/`` with ``.``;
+conv kernels turn from HWIO to OIHW.  Reading needs numpy alone: bf16
+leaves are stored as their uint16 bit patterns and viewed back as torch
+bf16.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Dict, List, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from retinanet_tpu.config import Config
+from retinanet_tpu.ops.anchors import build_levels
+from retinanet_tpu_torch.models.layers import Conv, GroupNorm
+from retinanet_tpu_torch.models.retinanet import RetinaNet
+
+EXPORT_FORMAT = "retinanet_tpu_export_v1"
+_META_KEY = "__retinanet_tpu_meta__"
+
+
+def _to_tensor(value: Union[np.ndarray, Tensor]) -> Tensor:
+    return value if isinstance(value, Tensor) else torch.from_numpy(
+        np.ascontiguousarray(value))
+
+
+def params_from_flax(flat: Mapping[str, Union[np.ndarray, Tensor]]
+                     ) -> Dict[str, Tensor]:
+    """Flat flax params ``{'a/b/kernel': HWIO array}`` → port state_dict
+    ``{'a.b.kernel': OIHW tensor}``; other leaves keep their shape."""
+    state = {}
+    for path, value in flat.items():
+        t = _to_tensor(value)
+        if path.rsplit("/", 1)[-1] == "kernel":
+            t = t.permute(3, 2, 0, 1)
+        state[path.replace("/", ".")] = t.contiguous()
+    return state
+
+
+def read_meta(path: str) -> dict:
+    with np.load(path) as data:
+        if _META_KEY not in data:
+            raise ValueError(f"{path} is not a retinanet_tpu export "
+                             f"(missing {_META_KEY})")
+        meta = json.loads(bytes(data[_META_KEY]).decode())
+    if meta.get("format") != EXPORT_FORMAT:
+        raise ValueError(f"{path}: unknown export format {meta.get('format')}")
+    return meta
+
+
+def load_exported(path: str) -> Tuple[dict, Dict[str, Tensor], List[str],
+                                      int]:
+    """→ (meta, state_dict, class_names, image_size).
+
+    bf16-stored leaves come back as float32 (exact), as in the JAX loader.
+    """
+    meta = read_meta(path)
+    bf16_leaves = set(meta.get("bf16_leaves", ()))
+    flat = {}
+    with np.load(path) as data:
+        for name in data.files:
+            if name == _META_KEY:
+                continue
+            arr = data[name]
+            if name in bf16_leaves:
+                flat[name] = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16).float()
+            else:
+                flat[name] = torch.from_numpy(arr)
+    return (meta, params_from_flax(flat), list(meta["class_names"]),
+            int(meta["image_size"]))
+
+
+def init_params(config: Config, generator: torch.Generator,
+                num_classes: int = None) -> Dict[str, Tensor]:
+    """Seeded random weights with flax's distributions: He-normal fan-in
+    kernels in the backbone, N(0, 0.01) in the FPN and heads, GN γ=1 and
+    β=0, and the class-output bias at the π prior."""
+    levels = build_levels(config.anchors)
+    model = RetinaNet.from_config(config.model, levels.num_anchors,
+                                  num_classes)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, Conv):
+                o, i, kh, kw = module.kernel.shape
+                std = (math.sqrt(2.0 / (i * kh * kw))
+                       if module.kernel_init == "he_normal" else 0.01)
+                module.kernel.normal_(0.0, std, generator=generator)
+                if module.bias is not None:
+                    module.bias.fill_(module.bias_init)
+            elif isinstance(module, GroupNorm):
+                module.gamma.fill_(1.0)
+                module.beta.fill_(0.0)
+    return model.state_dict()

@@ -1,0 +1,146 @@
+"""Inference path (port of ``retinanet_tpu/infer.py``).
+
+``make_inference_fn`` builds images → normalize → forward (compute dtype)
+→ ``fused_decode_nms``; ``Detector`` wraps it with weights, an explicit
+device and host-side numpy detections; ``benchmark`` times it on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from retinanet_tpu.config import Config
+from retinanet_tpu.ops.anchors import Levels, build_levels
+from retinanet_tpu_torch.export import init_params, load_exported
+from retinanet_tpu_torch.models.retinanet import RetinaNet
+from retinanet_tpu_torch.ops.nms import BoxesDecoded, fused_decode_nms
+from retinanet_tpu_torch.ops.preprocess import maybe_normalize
+
+logger = logging.getLogger(__name__)
+
+
+def make_inference_fn(model: RetinaNet, levels: Levels, config: Config
+                      ) -> Callable[[Tensor], BoxesDecoded]:
+    """images [B,H,W,3] (float normalized, or uint8) on the model's device
+    → BoxesDecoded, with no host synchronisation inside."""
+    nms_cfg = config.nms
+    if nms_cfg.use_approx_top_k or nms_cfg.use_approx_global_top_k:
+        logger.info("use_approx_top_k names a TPU unit; the port selects "
+                    "candidates with exact top-k")
+
+    @torch.inference_mode()
+    def infer(images: Tensor) -> BoxesDecoded:
+        images = maybe_normalize(images, config.data)
+        out = model(images)
+        return fused_decode_nms(out["classifications"], out["regressions"],
+                                levels, tuple(images.shape[1:3]), nms_cfg)
+
+    return infer
+
+
+class Detector:
+    """User-facing inference wrapper on one device."""
+
+    def __init__(self, config: Config, state_dict: Mapping[str, Tensor],
+                 class_names: List[str],
+                 device: Union[str, torch.device] = "cpu"):
+        self.config = config
+        self.class_names = class_names
+        self.device = torch.device(device)
+        self.levels = build_levels(config.anchors)
+        self.model = RetinaNet.from_config(
+            config.model, num_anchors=self.levels.num_anchors,
+            num_classes=len(class_names))
+        self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+        self._fn = make_inference_fn(self.model, self.levels, config)
+
+    @classmethod
+    def from_export(cls, path: str, config: Optional[Config] = None,
+                    device: Union[str, torch.device] = "cpu") -> "Detector":
+        """Serve a JAX export file; backbone and classes come from it."""
+        meta, state_dict, class_names, image_size = load_exported(path)
+        if config is None:
+            config = Config()
+            config = config.replace(data=dataclasses.replace(
+                config.data, image_size=image_size))
+        config = config.replace(model=dataclasses.replace(
+            config.model, backbone=meta["backbone"],
+            num_classes=len(class_names)))
+        return cls(config, state_dict, class_names, device)
+
+    def __call__(self, images: Union[np.ndarray, Tensor]) -> BoxesDecoded:
+        """images: [B, H, W, 3] normalized float32 (or uint8) →
+        BoxesDecoded on the detector's device."""
+        return self._fn(torch.as_tensor(images).to(self.device))
+
+    def detect(self, images: Union[np.ndarray, Tensor],
+               scales: Optional[np.ndarray] = None) -> List[Dict]:
+        """Per-image numpy detections (t,l,b,r pixels of the canvas, or of
+        the original image when ``scales`` maps canvas → original)."""
+        out = BoxesDecoded(*(t.cpu().numpy() for t in self(images)))
+        canvas_h, canvas_w = images.shape[1], images.shape[2]
+        scale_tlbr = np.array([canvas_h, canvas_w, canvas_h, canvas_w],
+                              np.float32)
+        results = []
+        for i in range(out.boxes.shape[0]):
+            valid = out.valid[i]
+            boxes = out.boxes[i][valid] * scale_tlbr
+            if scales is not None:
+                boxes = boxes / scales[i]
+            results.append({"boxes": boxes,
+                            "scores": out.scores[i][valid],
+                            "class_ids": out.class_ids[i][valid]})
+        return results
+
+
+def benchmark(config: Config, batch_size: int = 8, steps: int = 20,
+              warmup: int = 3, num_classes: int = 80,
+              device: Union[str, torch.device] = "cuda"
+              ) -> Dict[str, float]:
+    """images/sec + p50/p99 latency of the full inference path on random
+    images and seeded random weights.  Needs a CUDA device: a time taken
+    on the CPU is not the card's."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"benchmark times the card; got device {device}")
+    gen = torch.Generator().manual_seed(0)
+    detector = Detector(config, init_params(config, gen, num_classes),
+                        [str(i) for i in range(num_classes)], device)
+    size = config.data.image_size
+    images = torch.randn(batch_size, size, size, 3, generator=gen).to(device)
+
+    def sync(out: BoxesDecoded) -> None:
+        out.scores.sum().item()
+
+    for _ in range(warmup):
+        sync(detector(images))
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(steps):
+        out = detector(images)
+    sync(out)
+    total = time.perf_counter() - t0
+
+    lat = []
+    for _ in range(min(steps, 10)):
+        t1 = time.perf_counter()
+        sync(detector(images))
+        lat.append(time.perf_counter() - t1)
+    lat = np.asarray(lat)
+    return {
+        "images_per_sec": batch_size * steps / total,
+        "p50_latency_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_latency_ms": float(np.percentile(lat, 99)) * 1e3,
+        "batch_size": batch_size,
+        "image_size": size,
+    }

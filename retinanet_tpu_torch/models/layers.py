@@ -1,0 +1,168 @@
+"""Shared layers (port of ``retinanet_tpu/models/layers.py``).
+
+Tensors are NCHW in ``channels_last`` memory.  Parameters are created in
+float32 under the flax names (``kernel`` OIHW, ``bias``, ``gamma``,
+``beta``) so a flax leaf path maps onto a ``state_dict`` key by replacing
+``/`` with ``.``; convolutions cast the kernel to the input dtype at use,
+as the JAX ``Conv`` does, and GroupNorm keeps γ/β in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+
+def get_activation(name: str) -> Callable[[Tensor], Tensor]:
+    """Activation registry; ``gelu`` is the tanh form, as ``jax.nn.gelu``."""
+    return {
+        "elu": F.elu,
+        "relu": F.relu,
+        "relu6": F.relu6,
+        "swish": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    }[name]
+
+
+def resolve_groups(c: int, groups: int = 32) -> int:
+    """GroupNorm group count: ``min(groups, c)``, then the largest divisor
+    of ``c`` (the JAX package's single policy; tested equal to it)."""
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    return g
+
+
+def gn_scale_shift(s1: Tensor, s2: Tensor, hw: int, gamma: Tensor,
+                   beta: Tensor, groups: int, eps: float
+                   ) -> Tuple[Tensor, Tensor]:
+    """Per-image float32 (scale, shift) ``[N, C]`` of the GN affine
+    ``y * scale + shift`` from per-channel fp32 sums Σy, Σy² over ``hw``
+    pixels: group moments, var = E[y²]−E[y]² clamped at 0, then rsqrt."""
+    n, c = s1.shape
+    cg = c // groups
+    cnt = hw * cg
+    mean = s1.view(n, groups, cg).sum(-1, keepdim=True) / cnt
+    var = torch.clamp(
+        s2.view(n, groups, cg).sum(-1, keepdim=True) / cnt - mean * mean,
+        min=0.0)
+    inv = torch.rsqrt(var + eps)
+    gamma_g = gamma.float().view(1, groups, cg)
+    beta_g = beta.float().view(1, groups, cg)
+    scale = (inv * gamma_g).view(n, c)
+    shift = (beta_g - mean * inv * gamma_g).view(n, c)
+    return scale, shift
+
+
+def group_norm(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
+               eps: float = 1e-5, activation: Optional[str] = None) -> Tensor:
+    """Two-pass GroupNorm of an NCHW tensor (``layers.py:139-168``): fp32
+    per-channel Σx and Σx², then scale and shift cast to the input dtype
+    and the affine applied in that dtype."""
+    n, c, h, w = x.shape
+    x32 = x.float()
+    s1 = x32.sum(dim=(2, 3))
+    s2 = (x32 * x32).sum(dim=(2, 3))
+    scale, shift = gn_scale_shift(s1, s2, h * w, gamma, beta,
+                                  resolve_groups(c, groups), eps)
+    out = (x * scale.to(x.dtype)[:, :, None, None]
+           + shift.to(x.dtype)[:, :, None, None])
+    if activation is not None:
+        out = get_activation(activation)(out)
+    return out
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with γ/β in float32 and an optional fused activation."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.activation = activation
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return group_norm(x, self.gamma, self.beta, self.groups, self.eps,
+                          self.activation)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF/XLA "SAME" (before, after) padding of one spatial dim; the extra
+    element goes after, so stride 2 is asymmetric."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """NHWC-semantics conv with TF "SAME" padding, kernel stored OIHW in
+    float32 and cast to the input dtype at use; the optional bias is added
+    after the conv output is rounded, as in the JAX ``Conv``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 strides: int = 1, use_bias: bool = False,
+                 kernel_init: str = "he_normal", bias_init: float = 0.0):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.strides = strides
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+        self.kernel = nn.Parameter(
+            torch.empty(features, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def weight_as(self, x: Tensor) -> Tensor:
+        return self.kernel.to(dtype=x.dtype,
+                              memory_format=torch.channels_last)
+
+    def forward(self, x: Tensor) -> Tensor:
+        k, s = self.kernel_size, self.strides
+        top, bottom = same_padding(x.shape[2], k, s)
+        left, right = same_padding(x.shape[3], k, s)
+        if (top, left) == (bottom, right):
+            y = F.conv2d(x, self.weight_as(x), stride=s, padding=(top, left))
+        else:
+            y = F.conv2d(F.pad(x, (left, right, top, bottom)),
+                         self.weight_as(x), stride=s)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[None, :, None, None]
+        return y
+
+
+class ConvGN(nn.Module):
+    """conv (no bias) → GroupNorm → optional activation."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 strides: int = 1, gn_groups: int = 32,
+                 activation: Optional[str] = None,
+                 kernel_init: str = "he_normal"):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, features, kernel_size, strides,
+                           kernel_init=kernel_init)
+        self.GroupNorm_0 = GroupNorm(features, gn_groups,
+                                     activation=activation)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.GroupNorm_0(self.Conv_0(x))
+
+
+def max_pool_same(x: Tensor, window: int, strides: int) -> Tensor:
+    """Max pool with TF "SAME" padding by −inf (the stem's 3×3/2 pool pads
+    0 before and 1 after on an even side)."""
+    top, bottom = same_padding(x.shape[2], window, strides)
+    left, right = same_padding(x.shape[3], window, strides)
+    x = F.pad(x, (left, right, top, bottom), value=-math.inf)
+    return F.max_pool2d(x, window, strides)
+
+
+def nearest_upsample(x: Tensor, target_hw: Sequence[int]) -> Tensor:
+    """Nearest resize with half-pixel centres, as ``jax.image.resize(...,
+    "nearest")``; at exactly 2× this is a repeat of every pixel."""
+    return F.interpolate(x, size=tuple(target_hw), mode="nearest-exact")

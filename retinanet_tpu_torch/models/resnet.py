@@ -1,0 +1,100 @@
+"""Dense ResNet-50 backbone (port of ``retinanet_tpu/models/resnet.py``:
+``ResNetBottleneck`` and ``ResNet50``).
+
+Submodules carry flax's auto-numbered names (``ConvGN_0`` is the
+projection when a block has one; blocks are ``ResNetBottleneck_0..15``
+across all stages), so parameters load by flax leaf path.  Stride-1
+identity blocks in bf16 run the fused kernel (``ops/bottleneck.py``) under
+the JAX package's gate; everything else runs the plain layers.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Union
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
+from retinanet_tpu_torch.ops.bottleneck import fused_bottleneck
+
+logger = logging.getLogger(__name__)
+
+
+class ResNetBottleneck(nn.Module):
+    """1×1 reduce → 3×3 (stride on the 3×3) → 1×1 expand, GN + relu."""
+
+    def __init__(self, in_channels: int, filters: int,
+                 project: Union[bool, str], fused: bool = False):
+        super().__init__()
+        self.filters = filters
+        self.project = project
+        self.fused = fused
+        strides = 2 if project == "down" else 1
+        convs = []
+        if project:
+            convs.append(ConvGN(in_channels, filters * 4, kernel_size=1,
+                                strides=strides))
+        convs += [ConvGN(in_channels, filters, kernel_size=1,
+                         activation="relu"),
+                  ConvGN(filters, filters, kernel_size=3, strides=strides,
+                         activation="relu"),
+                  ConvGN(filters, filters * 4, kernel_size=1)]
+        for i, conv in enumerate(convs):
+            self.add_module(f"ConvGN_{i}", conv)
+
+    def forward(self, x: Tensor) -> Tensor:
+        convs = list(self.children())
+        conv1, conv2, conv3 = convs[-3:]
+        fusable = (not self.project and x.dtype == torch.bfloat16
+                   and x.shape[1] == self.filters * 4)
+        if self.fused and fusable:
+            params = []
+            for conv in (conv1, conv2, conv3):
+                params += [conv.Conv_0.kernel, conv.GroupNorm_0.gamma,
+                           conv.GroupNorm_0.beta]
+            out = fused_bottleneck(x.permute(0, 2, 3, 1), *params)
+            return out.permute(0, 3, 1, 2)
+        identity = convs[0](x) if self.project else x
+        return F.relu(conv3(conv2(conv1(x))) + identity)
+
+
+class ResNet50(nn.Module):
+    """Dense ResNet-50 returning {'C1'..'C5'}: 7×7/2 stem ConvGN + relu,
+    3×3/2 SAME max pool, stages (64,3) (128,4) (256,6) (512,3)."""
+
+    STAGES = ((64, 3, False), (128, 4, True), (256, 6, True), (512, 3, True))
+
+    def __init__(self, fused_blocks: bool = False, fused_res2: bool = False,
+                 fused_res2_strips: int = 20, fused_res3_strips: int = 0,
+                 fused_res4_strips: int = 0):
+        super().__init__()
+        if fused_blocks and (fused_res2_strips or fused_res3_strips
+                             or fused_res4_strips):
+            logger.info("fused_res{2,3,4}_strips size TPU VMEM strips; the "
+                        "CUDA bottleneck kernel ignores them")
+        self.ConvGN_0 = ConvGN(3, 64, kernel_size=7, strides=2,
+                               activation="relu")
+        in_ch, idx = 64, 0
+        for filters, depth, downsample in self.STAGES:
+            for i in range(depth):
+                project = ("down" if downsample else True) if i == 0 else False
+                block = ResNetBottleneck(
+                    in_ch, filters, project,
+                    fused=fused_blocks and (filters >= 128 or fused_res2))
+                self.add_module(f"ResNetBottleneck_{idx}", block)
+                in_ch, idx = filters * 4, idx + 1
+
+    def forward(self, x: Tensor) -> Dict[str, Tensor]:
+        x = self.ConvGN_0(x)
+        taps = {"C1": x}
+        x = max_pool_same(x, 3, 2)
+        idx = 0
+        for stage_idx, (_, depth, _) in enumerate(self.STAGES):
+            for _ in range(depth):
+                x = getattr(self, f"ResNetBottleneck_{idx}")(x)
+                idx += 1
+            taps[f"C{stage_idx + 2}"] = x
+        return taps

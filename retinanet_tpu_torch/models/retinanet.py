@@ -1,0 +1,101 @@
+"""RetinaNet assembly (port of ``retinanet_tpu/models/retinanet.py``).
+
+backbone → FPN → shared classification/regression subnets on P3..P7.
+Images come in NHWC (the JAX layout) and are viewed as NCHW in
+``channels_last`` memory; outputs are ``{'classifications': {P3..P7:
+[B,H,W,A,K]}, 'regressions': {P3..P7: [B,H,W,A,4]}}`` in the compute
+dtype.  Only the dense ResNet-50 flagship is built so far.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import Tensor, nn
+
+from retinanet_tpu.config import ModelConfig
+from retinanet_tpu_torch.models.fpn import FPN
+from retinanet_tpu_torch.models.heads import (ClassificationSubnet,
+                                              RegressionSubnet)
+from retinanet_tpu_torch.models.resnet import ResNet50
+
+BACKBONES = ("resnet_50", "resnet_50_dense", "densenet_121", "densenet_169",
+             "mobilenet_v2")
+
+
+def build_backbone(name: str, quantize: bool = False,
+                   fused_blocks: bool = False, fused_res2: bool = False,
+                   fused_res2_strips: int = 20, fused_res3_strips: int = 0,
+                   fused_res4_strips: int = 0) -> nn.Module:
+    if quantize:
+        raise NotImplementedError(
+            'quantize="int8" is not ported yet (ROADMAP A10, int8 serving)')
+    if name == "resnet_50_dense":
+        return ResNet50(fused_blocks=fused_blocks, fused_res2=fused_res2,
+                        fused_res2_strips=fused_res2_strips,
+                        fused_res3_strips=fused_res3_strips,
+                        fused_res4_strips=fused_res4_strips)
+    if name in BACKBONES:
+        raise NotImplementedError(
+            f"backbone {name!r} is not ported yet (ROADMAP A8, other "
+            "backbones); only 'resnet_50_dense' is")
+    raise ValueError(f"unknown backbone {name!r}; choose from {BACKBONES}")
+
+
+class RetinaNet(nn.Module):
+    """Full detector.  Construct via ``RetinaNet.from_config(cfg.model)``."""
+
+    def __init__(self, backbone: str = "resnet_50_dense",
+                 num_classes: int = 80, num_anchors: int = 9,
+                 activation: str = "elu", fpn_channels: int = 256,
+                 head_depth: int = 4, prior_prob: float = 0.01,
+                 quantize: bool = False, fused_blocks: bool = False,
+                 fused_res2: bool = False, fused_res2_strips: int = 20,
+                 fused_res3_strips: int = 0, fused_res4_strips: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone_net = build_backbone(
+            backbone, quantize=quantize, fused_blocks=fused_blocks,
+            fused_res2=fused_res2, fused_res2_strips=fused_res2_strips,
+            fused_res3_strips=fused_res3_strips,
+            fused_res4_strips=fused_res4_strips)
+        self.fpn = FPN({"C3": 512, "C4": 1024, "C5": 2048}, fpn_channels,
+                       activation)
+        self.classification_subnet = ClassificationSubnet(
+            num_anchors, num_classes, fpn_channels, head_depth, activation,
+            prior_prob)
+        self.regression_subnet = RegressionSubnet(
+            num_anchors, fpn_channels, head_depth, activation)
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, num_anchors: int = 9,
+                    num_classes: int = None) -> "RetinaNet":
+        return cls(
+            backbone=cfg.backbone,
+            num_classes=cfg.num_classes if num_classes is None
+            else num_classes,
+            num_anchors=num_anchors,
+            activation=cfg.activation,
+            fpn_channels=cfg.fpn_channels,
+            head_depth=cfg.head_depth,
+            prior_prob=cfg.prior_prob,
+            quantize=cfg.quantize == "int8",
+            fused_blocks=cfg.fused_blocks,
+            fused_res2=cfg.fused_res2,
+            fused_res2_strips=cfg.fused_res2_strips,
+            fused_res3_strips=cfg.fused_res3_strips,
+            fused_res4_strips=cfg.fused_res4_strips,
+            dtype=getattr(torch, cfg.compute_dtype))
+
+    def forward(self, images: Tensor) -> Dict[str, Dict[str, Tensor]]:
+        x = images.to(self.dtype).permute(0, 3, 1, 2)
+        bottom_up = self.backbone_net(x)
+        top_down = self.fpn({k: bottom_up[k] for k in ("C3", "C4", "C5")})
+        return {
+            "classifications": {k: self.classification_subnet(v)
+                                for k, v in top_down.items()},
+            "regressions": {k: self.regression_subnet(v)
+                            for k, v in top_down.items()},
+        }

@@ -1,0 +1,57 @@
+"""The port and ``chip_smoke.py`` import and run their CPU paths with JAX
+and flax unavailable: the card's machine has no JAX.  Without a card,
+``chip_smoke.main`` returns 1 and prints nothing on stdout."""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CODE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+import retinanet_tpu_torch.export
+import retinanet_tpu_torch.infer
+from retinanet_tpu_torch.ops import bottleneck, nms
+
+g = torch.Generator().manual_seed(0)
+x = torch.randn(1, 4, 5, 64, generator=g).to(torch.bfloat16)
+ks = [torch.randn(16, 64, 1, 1, generator=g), torch.ones(16), torch.zeros(16),
+      torch.randn(16, 16, 3, 3, generator=g), torch.ones(16), torch.zeros(16),
+      torch.randn(64, 16, 1, 1, generator=g), torch.ones(64), torch.zeros(64)]
+y = bottleneck.fused_bottleneck(x, *ks)
+assert y.shape == x.shape and y.dtype == torch.bfloat16
+assert torch.equal(y, bottleneck.fused_bottleneck_plain(x, *ks))
+
+c = torch.rand(2, 30, 2, generator=g)
+boxes = torch.cat([c, c + 0.2], -1)
+keep = nms.nms_keep_mask_batch(boxes, 0.5)
+assert keep.dtype == torch.bool and keep.shape == (2, 30)
+assert torch.equal(keep, nms._greedy_keep_mask(boxes, 0.5))
+assert bottleneck.fused_bottleneck.launches == 0
+assert nms.nms_keep_mask_batch.launches == 0
+assert sys.modules["jax"] is None and sys.modules["flax"] is None
+
+# No visible card: the smoke run refuses before it prints a result.
+assert not torch.cuda.is_available()
+assert chip_smoke.main() == 1
+print("ok")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+    assert "no CUDA device" in proc.stderr
