@@ -7,19 +7,30 @@ Needs one CUDA card of capability 9.0 (H100); exits non-zero without one.
 Phases, one line each (any failure raises and the exit code is non-zero):
 
 1. device: torch version, ``nvidia-smi`` name and power limit, capability;
-2. build: both hand-written kernels with ``nvcc``; ptxas register/smem/
-   spill lines;
+2. build: the three hand-written kernels with ``nvcc``, started together;
+   ptxas register/smem/spill lines;
 3. B1 check: fused bottleneck kernel vs its plain version at the four
    stage shapes of the 640-px flagship (batch 2 and 8, randomized GN
    γ/β), and bitwise repeatability;
 4. B2 check: NMS keep-mask kernel vs the plain greedy mask on clustered,
    class-offset boxes with parked invalids: exactly equal;
-5. flagship end to end: resnet_50_dense RetinaNet at 640 px, 80 classes,
-   bf16, seeded random weights, through ``Detector`` at batch 8, at the
-   default NMSConfig and at score_threshold 0.005; launch counts, head
-   outputs vs the unfused plain path, B2 on the model's own candidates;
-6. timing: images/s and p50 at batch 8 and 128, and each kernel vs its
-   plain version at the slice's shapes (CUDA events after warmup).
+5. B3 check: fused bottleneck backward kernel vs its plain version at the
+   four stage shapes (batch 2 and 8, randomized γ/β, random bf16 dout):
+   max |Δ|/max|ref| and correlation of dx and each parameter gradient,
+   and bitwise repeatability;
+6. serving path: resnet_50_dense RetinaNet at 640 px, 80 classes, bf16,
+   seeded random weights, through ``Detector`` at batch 8, at the default
+   NMSConfig and at score_threshold 0.005; launch counts, head outputs vs
+   the unfused plain path, B2 on the model's own candidates;
+7. training path: the same flagship with ``fused_train`` through
+   ``make_train_step`` at batch 8 on a fixed batch; launch counts per
+   step (12 B1 + 12 B3), one step vs the plain path from the same
+   parameters (losses, grad_norm, update correlation), the loss over 10
+   steps;
+8. timing: serving images/s and p50 at batch 8 and 128; training step ms,
+   images/s and peak memory of both paths at batch 8 and 32; each kernel
+   vs its plain version at the slices' shapes (CUDA events after warmup),
+   with its bound at the card's published peaks.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -33,16 +44,20 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from retinanet_tpu.config import Config
-from retinanet_tpu.ops.anchors import build_levels
+from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.export import init_params
 from retinanet_tpu_torch.infer import Detector, benchmark
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops import bottleneck as b1
+from retinanet_tpu_torch.ops import bottleneck_bwd as b3
 from retinanet_tpu_torch.ops import nms as b2
+from retinanet_tpu_torch.ops.anchors import build_levels
+from retinanet_tpu_torch.train import (benchmark_train, create_train_state,
+                                       make_train_step, synthetic_batch)
 
 # (H, W, C, F) of the 12 identity blocks at 640 px, with their counts.
 STAGES = (("res2", 160, 160, 256, 64, 2), ("res3", 80, 80, 512, 128, 3),
@@ -55,6 +70,31 @@ B1_MEAN = 1e-3
 # Head outputs of the kernel path vs the unfused plain path: the JAX
 # package's own fused-vs-unfused backbone bound (test_pallas_bottleneck).
 HEAD_RTOL, HEAD_ATOL = 5e-2, 1e-1
+# B3 bound, for dx and each parameter gradient, with the numbers of the JAX
+# package's tests (test_pallas_bottleneck_bwd.py): correlation ≥ 0.999 with
+# the plain version and ‖Δ‖₂ ≤ 0.03·‖ref‖₂ (the JAX kernel-vs-autodiff
+# bound, :65-71, taken over the norm); and against the float64 gradient
+# (the plain version rounding nowhere) a max error, relative to max|truth|,
+# at most 1.2× the plain version's + 5e-3 (its "at least as accurate" test,
+# :158-227).  Kernel and plain version share the rounding points but sum in
+# another fp32 order: a conv output one bf16 step apart flips a relu whose
+# input is within a step of 0, and at full size such flips put single
+# elements past 0.03·max|ref| (printed as max_rel), while both versions sit
+# 3-12% from the float64 gradient by that measure.
+B3_REL, B3_CORR = 0.03, 0.999
+B3_TRUTH_FACTOR, B3_TRUTH_SLACK = 1.2, 5e-3
+B3_OUTPUTS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3",
+              "db3")
+# Training step, kernel path vs plain path from the same parameters: each
+# loss and grad_norm within 2% relative, and the first step's parameter
+# updates (−lr·grad) correlated ≥ 0.98 (the JAX package's whole-backbone
+# fused-train bound, test_pallas_bottleneck_bwd.py:230-259).  bf16 values
+# a step apart in 12 blocks carry through the backbone.
+TRAIN_REL, TRAIN_CORR = 2e-2, 0.98
+TRAIN_STEPS = 10  # the loss must fall over this many steps on one batch
+# Published peaks of one H100 SXM (dense bf16 tensor cores, fp32 outside
+# them, HBM), against which each kernel's bound is stated.
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(phase: str, **fields) -> None:
@@ -121,6 +161,73 @@ def check_b1(device) -> float:
                 raise AssertionError(f"B1 is not bitwise repeatable at "
                                      f"{name}, batch {batch}")
             worst = max(worst, err.max().item())
+    return worst
+
+
+def block_bound(batch, h, w, c, f, passes):
+    """(ms, bound_by) of ``passes`` block GEMM sets (1 forward, 3 for the
+    backward's recompute, dgrad and wgrad) at the published peaks: FLOP =
+    passes·2·B·H·W·(2CF + 9F²); bytes = each bf16 image tensor (x, out for
+    the forward; x, dout, dx for the backward) once, the fp32 parameters
+    once, and for the backward their fp32 gradients once."""
+    hw = batch * h * w
+    flop = passes * 2 * hw * (2 * c * f + 9 * f * f)
+    params = (2 * c * f + 9 * f * f + 4 * f + 2 * c) * 4
+    images = (2 if passes == 1 else 3) * hw * c * 2
+    nbytes = images + params * (1 if passes == 1 else 2)
+    t_op, t_by = flop / PEAK_BF16, nbytes / PEAK_BYTES
+    return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
+
+
+def check_b3(device) -> float:
+    """B3 vs its plain version and vs the float64 gradient at every stage
+    shape; returns the worst max |Δ| of dx against the plain version."""
+    gen = torch.Generator().manual_seed(5)
+    worst = 0.0
+    for batch in (2, 8):
+        for name, h, w, c, f, _ in STAGES:
+            x, params = block_inputs(batch, h, w, c, f, gen, device)
+            dout = torch.randn(batch, h, w, c, generator=gen).to(
+                torch.bfloat16).to(device)
+            ref = b3.fused_bottleneck_bwd_plain(x, dout, *params)
+            truth = b3.fused_bottleneck_bwd_plain(x, dout, *params,
+                                                  dtype=torch.float64)
+            out = b3.fused_bottleneck_bwd(x, dout, *params)
+            again = b3.fused_bottleneck_bwd(x, dout, *params)
+            torch.cuda.synchronize()
+            stats = {k: {} for k in ("max_rel", "l2_rel", "corr",
+                                     "f64_err_kernel", "f64_err_plain")}
+            for key, o, r, t in zip(B3_OUTPUTS, out, ref, truth):
+                o, r, t = o.float().ravel(), r.float().ravel(), t.ravel()
+                stats["max_rel"][key] = ((o - r).abs().max()
+                                         / r.abs().max()).item()
+                stats["l2_rel"][key] = ((o - r).norm() / r.norm()).item()
+                stats["corr"][key] = torch.corrcoef(
+                    torch.stack([o, r]))[0, 1].item()
+                scale = t.abs().max()
+                stats["f64_err_kernel"][key] = (
+                    (o - t).abs().max() / scale).item()
+                stats["f64_err_plain"][key] = (
+                    (r - t).abs().max() / scale).item()
+            repeat = all(torch.equal(a, b) for a, b in zip(out, again))
+            dx_err = (out[0].float() - ref[0].float()).abs().max().item()
+            log("b3-check", stage=name, shape=[batch, h, w, c], F=f,
+                dx_max_abs_err=dx_err, **stats, bitwise_repeat=repeat)
+            bad = [k for k in B3_OUTPUTS
+                   if not (stats["l2_rel"][k] <= B3_REL
+                           and stats["corr"][k] >= B3_CORR
+                           and stats["f64_err_kernel"][k]
+                           <= B3_TRUTH_FACTOR * stats["f64_err_plain"][k]
+                           + B3_TRUTH_SLACK)]
+            if bad:
+                raise AssertionError(f"B3 disagrees with its plain version "
+                                     f"at {name}, batch {batch}: {bad}")
+            if not repeat:
+                raise AssertionError(f"B3 is not bitwise repeatable at "
+                                     f"{name}, batch {batch}")
+            worst = max(worst, dx_err)
+            del x, params, dout, ref, truth, out, again
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -240,23 +347,141 @@ def check_flagship(device):
     return launches
 
 
+def train_config(batch: int = 8, fused: bool = True) -> Config:
+    """The flagship's training config: resnet_50_dense at 640 px, bf16,
+    the Config's default momentum SGD; ``fused_train`` on the kernel path."""
+    config = Config()
+    return config.replace(
+        model=dataclasses.replace(config.model, backbone="resnet_50_dense",
+                                  fused_train=fused),
+        data=dataclasses.replace(config.data, image_size=640,
+                                 batch_size=batch))
+
+
+def check_training(device):
+    """One step of each path from the same seeded parameters on the fixed
+    batch, launch counts of the kernel path's step, then the kernel path's
+    loss over ``TRAIN_STEPS`` steps."""
+    levels = build_levels()
+    state_dict = init_params(train_config(), torch.Generator().manual_seed(0),
+                             80)
+    batch = synthetic_batch(8, 640, 100, device)
+    first, updates, losses, launches = {}, {}, [], {}
+    for path in ("kernels", "plain"):
+        config = train_config(8, fused=path == "kernels")
+        model = RetinaNet.from_config(config.model, 9, 80).to(device)
+        state = create_train_state(model, config, state_dict)
+        step = make_train_step(model, levels, config)
+        gen = torch.Generator(device).manual_seed(1)
+        # The main path, counted: one training step.
+        b1.fused_bottleneck.launches = 0
+        b3.fused_bottleneck_bwd.launches = 0
+        state, metrics = step(state, *batch, gen)
+        torch.cuda.synchronize()
+        if path == "kernels":
+            launches = {"b1": b1.fused_bottleneck.launches,
+                        "b3": b3.fused_bottleneck_bwd.launches}
+        first[path] = {k: float(metrics[k]) for k in
+                       ("total_loss", "class_loss", "regr_loss",
+                        "regularization_loss", "grad_norm")}
+        updates[path] = torch.cat([
+            (p.detach() - state_dict[k].to(device)).ravel()
+            for k, p in state.params.items()])
+        finite = all(math.isfinite(v) for v in first[path].values())
+        log("train-step", path=path, batch=8, **first[path],
+            num_fg=int(metrics["num_fg"]), finite=finite)
+        if not finite:
+            raise AssertionError(f"non-finite training step on the {path} "
+                                 "path")
+        if path == "kernels":
+            log("train-launches", **launches, steps=1)
+            if launches != {"b1": 12, "b3": 12}:
+                raise AssertionError(f"expected 12 B1 and 12 B3 launches "
+                                     f"per training step, got {launches}")
+            losses = [first[path]["total_loss"]]
+            light = make_train_step(model, levels, config,
+                                    with_metrics=False)
+            for _ in range(TRAIN_STEPS - 1):
+                state, metrics = light(state, *batch, gen)
+                losses.append(float(metrics["total_loss"]))
+            log("train-loss", path=path, steps=TRAIN_STEPS,
+                total_loss=losses)
+            if not (all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"the loss did not fall: {losses}")
+        del model, state, step, metrics
+        torch.cuda.empty_cache()
+
+    rel = {k: abs(first["kernels"][k] - first["plain"][k])
+           / abs(first["plain"][k]) for k in first["plain"]}
+    corr = torch.corrcoef(torch.stack([updates["kernels"],
+                                       updates["plain"]]))[0, 1].item()
+    log("train-vs-plain", rel=rel, update_corr=corr, bound_rel=TRAIN_REL,
+        bound_corr=TRAIN_CORR)
+    if max(rel.values()) > TRAIN_REL or corr < TRAIN_CORR:
+        raise AssertionError("the kernel path's training step disagrees "
+                             "with the plain path")
+    del updates
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nms_bound(batch, n):
+    """(ms, bound_by) of the keep mask: ~17 fp32 operations per box pair
+    (the IoU and its test) outside the tensor cores; bytes: the boxes in,
+    the mask out."""
+    t_op = batch * n * (n - 1) / 2 * 17 / PEAK_FP32
+    t_by = (batch * n * 16 + batch * n) / PEAK_BYTES
+    return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
+
+
 def time_kernels(device):
+    """Each kernel vs its plain version at the slices' shapes (batch 8),
+    with its bound; B1 and B3 summed over the 12 identity blocks."""
     gen = torch.Generator().manual_seed(4)
-    b1_ms = b1_plain_ms = 0.0
+    timing = {"b1": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0),
+              "b3": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0)}
     for name, h, w, c, f, count in STAGES:
         x, params = block_inputs(8, h, w, c, f, gen, device)
-        k_ms = cuda_time_ms(lambda: b1.fused_bottleneck(x, *params), 10)
-        p_ms = cuda_time_ms(lambda: b1.fused_bottleneck_plain(x, *params), 10)
-        log("b1-time", stage=name, batch=8, kernel_ms=k_ms, plain_ms=p_ms,
-            blocks_per_forward=count)
-        b1_ms += count * k_ms
-        b1_plain_ms += count * p_ms
-    boxes = clustered_boxes(8, 1000, gen).to(device)
-    b2_ms = cuda_time_ms(lambda: b2.nms_keep_mask_batch(boxes, 0.5), 20)
-    b2_plain_ms = cuda_time_ms(lambda: b2._greedy_keep_mask(boxes, 0.5), 3,
-                               warmup=1)
-    log("b2-time", shape=[8, 1000, 4], kernel_ms=b2_ms, plain_ms=b2_plain_ms)
-    return (b1_ms, b1_plain_ms), (b2_ms, b2_plain_ms)
+        dout = torch.randn(8, h, w, c, generator=gen).to(
+            torch.bfloat16).to(device)
+        for key, passes, kernel, plain in (
+                ("b1", 1, lambda: b1.fused_bottleneck(x, *params),
+                 lambda: b1.fused_bottleneck_plain(x, *params)),
+                ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params),
+                 lambda: b3.fused_bottleneck_bwd_plain(x, dout, *params))):
+            k_ms = cuda_time_ms(kernel, 10)
+            p_ms = cuda_time_ms(plain, 5)
+            bound, by = block_bound(8, h, w, c, f, passes)
+            log(f"{key}-time", stage=name, batch=8, kernel_ms=k_ms,
+                plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                blocks_per_step=count)
+            t = timing[key]
+            t["ms"] += count * k_ms
+            t["plain_ms"] += count * p_ms
+            t["bound_ms"] += count * bound
+            t["t_op"] += count * (bound if by == "operations" else 0.0)
+        del x, params, dout
+    for t in timing.values():
+        t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
+                         else "bytes")
+    for shape in ((8, 1000), (1, 1000)):
+        boxes = clustered_boxes(*shape, gen).to(device)
+        single = shape[0] == 1
+        kernel = ((lambda: b2.nms_keep_mask(boxes[0], 0.5)) if single else
+                  (lambda: b2.nms_keep_mask_batch(boxes, 0.5)))
+        k_ms = cuda_time_ms(kernel, 20)
+        p_ms = cuda_time_ms(lambda: b2._greedy_keep_mask(boxes, 0.5), 3,
+                            warmup=1)
+        bound, by = nms_bound(*shape)
+        log("b2-time", shape=[*shape, 4], kernel_ms=k_ms, plain_ms=p_ms,
+            bound_ms=bound, bound_by=by,
+            entry="nms_keep_mask" if single else "nms_keep_mask_batch")
+        if not single:
+            timing["b2"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                bound_by=by)
+    torch.cuda.empty_cache()
+    return timing
 
 
 def time_end_to_end(device):
@@ -273,6 +498,48 @@ def time_end_to_end(device):
                 images_per_sec=r["images_per_sec"],
                 p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
             torch.cuda.empty_cache()
+
+
+def time_training(device):
+    """Training step ms, images/s and peak memory of both paths at the
+    Config's batch 8 and at bench.py's training batch 32."""
+    for batch in (8, 32):
+        for path in ("kernels", "plain"):
+            config = train_config(batch, fused=path == "kernels")
+            try:
+                r = benchmark_train(config, batch_size=batch, steps=5,
+                                    warmup=2, num_classes=80, device=device)
+            except torch.cuda.OutOfMemoryError as err:
+                log("train-time", path=path, batch=batch, fits=False,
+                    error=str(err).splitlines()[0])
+                torch.cuda.empty_cache()
+                continue
+            log("train-time", path=path, batch=batch, fits=True,
+                step_ms=r["step_ms"], images_per_sec=r["images_per_sec"],
+                peak_memory_gib=r["peak_memory_bytes"] / 2 ** 30,
+                final_loss=r["final_loss"])
+            if not r["finite"]:
+                raise AssertionError(f"non-finite loss timing the {path} "
+                                     f"path at batch {batch}")
+            torch.cuda.empty_cache()
+
+
+def build_kernels():
+    """One nvcc per source, all started together."""
+    libs = (b1.LIB, b2.LIB, b3.LIB)
+
+    def build(lib):
+        t = time.monotonic()
+        lib.build()
+        return time.monotonic() - t
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        seconds = list(pool.map(build, libs))
+    for lib, sec in zip(libs, seconds):
+        lines = [ln.strip() for ln in lib.ptxas_log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        log("build", source=lib.source.name, seconds=sec, ptxas=lines)
 
 
 def main() -> int:
@@ -292,33 +559,34 @@ def main() -> int:
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         nvidia_smi=smi, capability=list(cap))
 
-    for lib in (b1.LIB, b2.LIB):
-        t = time.monotonic()
-        lib.build()
-        lines = [ln.strip() for ln in lib.ptxas_log.splitlines()
-                 if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
-        log("build", source=lib.source.name, seconds=time.monotonic() - t,
-            ptxas=lines)
-
+    build_kernels()
     b1_err = check_b1(device)
     b2_err = check_b2(device)
+    b3_err = check_b3(device)
     launches = check_flagship(device)
-    (b1_ms, b1_plain), (b2_ms, b2_plain) = time_kernels(device)
+    train_launches = check_training(device)
+    timing = time_kernels(device)
     time_end_to_end(device)
+    time_training(device)
 
+    sources = {
+        "b1": ("fused_bottleneck", "bottleneck.cu",
+               "retinanet_tpu/ops/pallas/bottleneck.py:372",
+               launches["b1"], b1_err),
+        "b2": ("nms_keep_mask_batch", "nms.cu",
+               "retinanet_tpu/ops/pallas/nms_kernel.py:162",
+               launches["b2"], float(b2_err)),
+        "b3": ("fused_bottleneck_bwd", "bottleneck_bwd.cu",
+               "retinanet_tpu/ops/pallas/bottleneck_bwd.py:326",
+               train_launches["b3"], b3_err),
+    }
     print(json.dumps({"kernels": [
-        {"name": "fused_bottleneck", "route": "cuda",
-         "source": "retinanet_tpu_torch/ops/csrc/bottleneck.cu",
-         "replaces": "retinanet_tpu/ops/pallas/bottleneck.py:372",
-         "launches": launches["b1"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain},
-        {"name": "nms_keep_mask_batch", "route": "cuda",
-         "source": "retinanet_tpu_torch/ops/csrc/nms.cu",
-         "replaces": "retinanet_tpu/ops/pallas/nms_kernel.py:162",
-         "launches": launches["b2"], "max_abs_err": float(b2_err),
-         "ms": b2_ms, "plain_ms": b2_plain},
-    ]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": f"retinanet_tpu_torch/ops/csrc/{src}",
+         "replaces": replaces, "launches": count, "max_abs_err": err,
+         **timing[key], "library_ms": None}
+        for key, (name, src, replaces, count, err) in sources.items()]}),
+        flush=True)
     log("done", seconds=time.monotonic() - t0)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,15 @@ keep the JAX layout (NHWC images, ``[B,H,W,A,K]`` head maps,
 ``channels_last`` memory so cuDNN convolutions and the hand-written kernels
 both read NHWC bytes.
 
-Shared with the JAX package (both import no JAX): ``retinanet_tpu.config``
-for the one ``Config`` and ``retinanet_tpu.ops.anchors`` for the anchor
-pyramid.  Nothing here imports ``jax``; the kernels that replace the
-Pallas ones live under ``ops/csrc`` and build with ``nvcc`` at first use.
+The port imports nothing of the JAX package, nor ``jax``/``flax``: it keeps
+its own copies of what it needs (``config`` for ``Config``,
+``ops.anchors`` for the anchor pyramid), held equal to the originals by
+the CPU tests.  The kernels that replace the Pallas ones live under
+``ops/csrc`` and build with ``nvcc`` at first use.
+
+Slices ported: serving (``infer``) and the training step (``train``).
 """
 
 __version__ = "0.1.0"
 
-from retinanet_tpu.config import Config  # noqa: F401
+from retinanet_tpu_torch.config import Config  # noqa: F401

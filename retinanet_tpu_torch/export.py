@@ -1,5 +1,9 @@
 """The weight bridge: JAX export files and seeded random weights.
 
+Both ``params_from_flax`` (JAX parameters) and ``init_params`` (seeded
+weights) give a ``state_dict`` that serves through ``infer.Detector`` and
+starts training through ``train.create_train_state``.
+
 Parameters cross from the JAX package through its export format
 (``retinanet_tpu/export.py:export_model``, the ``retinanet_tpu_export_v1``
 npz keyed by flax leaf path).  The port's modules carry flax's names, so a
@@ -19,8 +23,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from retinanet_tpu.config import Config
-from retinanet_tpu.ops.anchors import build_levels
+from retinanet_tpu_torch.config import Config
+from retinanet_tpu_torch.ops.anchors import build_levels
 from retinanet_tpu_torch.models.layers import Conv, GroupNorm
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 

@@ -16,8 +16,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from retinanet_tpu.config import Config
-from retinanet_tpu.ops.anchors import Levels, build_levels
+from retinanet_tpu_torch.config import Config
+from retinanet_tpu_torch.ops.anchors import Levels, build_levels
 from retinanet_tpu_torch.export import init_params, load_exported
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops.nms import BoxesDecoded, fused_decode_nms
@@ -46,11 +46,12 @@ def make_inference_fn(model: RetinaNet, levels: Levels, config: Config
 
 
 class Detector:
-    """User-facing inference wrapper on one device."""
+    """User-facing inference wrapper on one device: the card unless the
+    caller passes another."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, Tensor],
                  class_names: List[str],
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         self.config = config
         self.class_names = class_names
         self.device = torch.device(device)
@@ -64,7 +65,7 @@ class Detector:
 
     @classmethod
     def from_export(cls, path: str, config: Optional[Config] = None,
-                    device: Union[str, torch.device] = "cpu") -> "Detector":
+                    device: Union[str, torch.device] = "cuda") -> "Detector":
         """Serve a JAX export file; backbone and classes come from it."""
         meta, state_dict, class_names, image_size = load_exported(path)
         if config is None:

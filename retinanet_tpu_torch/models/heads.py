@@ -4,13 +4,16 @@
 4 × (3×3 ConvGN 256 + act), then a biased 3×3 output conv whose
 ``[B, A·K, H, W]`` output is permuted to NHWC before it is viewed as
 ``[B, H, W, A, K]`` (channel a·K+k is anchor a, class k).  Logits stay in
-the compute dtype; the class bias starts at −log((1−π)/π).
+the compute dtype at serving time and are float32 when training (the loss
+reductions are precision-sensitive); the class bias starts at
+−log((1−π)/π).
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
 from torch import Tensor, nn
 
 from retinanet_tpu_torch.models.layers import Conv, ConvGN
@@ -31,13 +34,14 @@ class _Subnet(nn.Module):
                            kernel_size=3, use_bias=True,
                            kernel_init="normal_001", bias_init=bias_init)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         for i in range(self.depth):
             x = getattr(self, f"ConvGN_{i}")(x)
         x = self.Conv_0(x)
         b, _, h, w = x.shape
-        return x.permute(0, 2, 3, 1).reshape(
+        x = x.permute(0, 2, 3, 1).reshape(
             b, h, w, self.num_anchors, self.out_per_anchor)
+        return x.to(torch.float32) if training else x
 
 
 class ClassificationSubnet(_Subnet):

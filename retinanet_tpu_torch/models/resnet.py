@@ -3,9 +3,14 @@
 
 Submodules carry flax's auto-numbered names (``ConvGN_0`` is the
 projection when a block has one; blocks are ``ResNetBottleneck_0..15``
-across all stages), so parameters load by flax leaf path.  Stride-1
-identity blocks in bf16 run the fused kernel (``ops/bottleneck.py``) under
-the JAX package's gate; everything else runs the plain layers.
+across all stages), so parameters load by flax leaf path whichever path
+runs.  Stride-1 identity blocks in bf16 run the fused kernel B1
+(``ops/bottleneck.py``) at serving time under the JAX package's gate, and
+with ``fused_train`` every one of them runs B1 forward and the hand-written
+backward B3 (``ops/bottleneck_bwd.py``) when training.  The JAX package
+keeps res5 (width 20 at 640 px) on autodiff because of a Mosaic tiling
+limit (``w % 8``); the CUDA kernel has none, so all 12 identity blocks take
+B3.  Everything else runs the plain layers.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import Tensor, nn
 
 from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
 from retinanet_tpu_torch.ops.bottleneck import fused_bottleneck
+from retinanet_tpu_torch.ops.bottleneck_bwd import fused_bottleneck_train
 
 logger = logging.getLogger(__name__)
 
@@ -27,11 +33,13 @@ class ResNetBottleneck(nn.Module):
     """1×1 reduce → 3×3 (stride on the 3×3) → 1×1 expand, GN + relu."""
 
     def __init__(self, in_channels: int, filters: int,
-                 project: Union[bool, str], fused: bool = False):
+                 project: Union[bool, str], fused: bool = False,
+                 fused_train: bool = False):
         super().__init__()
         self.filters = filters
         self.project = project
         self.fused = fused
+        self.fused_train = fused_train
         strides = 2 if project == "down" else 1
         convs = []
         if project:
@@ -45,17 +53,19 @@ class ResNetBottleneck(nn.Module):
         for i, conv in enumerate(convs):
             self.add_module(f"ConvGN_{i}", conv)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         convs = list(self.children())
         conv1, conv2, conv3 = convs[-3:]
         fusable = (not self.project and x.dtype == torch.bfloat16
                    and x.shape[1] == self.filters * 4)
-        if self.fused and fusable:
+        if fusable and (self.fused and not training
+                        or self.fused_train and training):
             params = []
             for conv in (conv1, conv2, conv3):
                 params += [conv.Conv_0.kernel, conv.GroupNorm_0.gamma,
                            conv.GroupNorm_0.beta]
-            out = fused_bottleneck(x.permute(0, 2, 3, 1), *params)
+            block = fused_bottleneck_train if training else fused_bottleneck
+            out = block(x.permute(0, 2, 3, 1), *params)
             return out.permute(0, 3, 1, 2)
         identity = convs[0](x) if self.project else x
         return F.relu(conv3(conv2(conv1(x))) + identity)
@@ -69,7 +79,7 @@ class ResNet50(nn.Module):
 
     def __init__(self, fused_blocks: bool = False, fused_res2: bool = False,
                  fused_res2_strips: int = 20, fused_res3_strips: int = 0,
-                 fused_res4_strips: int = 0):
+                 fused_res4_strips: int = 0, fused_train: bool = False):
         super().__init__()
         if fused_blocks and (fused_res2_strips or fused_res3_strips
                              or fused_res4_strips):
@@ -83,18 +93,20 @@ class ResNet50(nn.Module):
                 project = ("down" if downsample else True) if i == 0 else False
                 block = ResNetBottleneck(
                     in_ch, filters, project,
-                    fused=fused_blocks and (filters >= 128 or fused_res2))
+                    fused=fused_blocks and (filters >= 128 or fused_res2),
+                    fused_train=fused_train)
                 self.add_module(f"ResNetBottleneck_{idx}", block)
                 in_ch, idx = filters * 4, idx + 1
 
-    def forward(self, x: Tensor) -> Dict[str, Tensor]:
+    def forward(self, x: Tensor, training: bool = False
+                ) -> Dict[str, Tensor]:
         x = self.ConvGN_0(x)
         taps = {"C1": x}
         x = max_pool_same(x, 3, 2)
         idx = 0
         for stage_idx, (_, depth, _) in enumerate(self.STAGES):
             for _ in range(depth):
-                x = getattr(self, f"ResNetBottleneck_{idx}")(x)
+                x = getattr(self, f"ResNetBottleneck_{idx}")(x, training)
                 idx += 1
             taps[f"C{stage_idx + 2}"] = x
         return taps

@@ -3,8 +3,9 @@
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
 its own shared library under ``build/kernels/`` at the repository root
 (listed in ``.gitignore``), at first use, then loaded with ``ctypes``.  The
-library name carries a hash of the source and flags, so an edited source
-rebuilds and an unchanged one is reused.  Nothing is built at import time:
+library name carries a hash of the flags, the source and every ``csrc``
+header it includes, so an edited source or header rebuilds and an
+unchanged one is reused.  Nothing is built at import time:
 the CPU tests import every module of the port.
 """
 
@@ -13,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -30,6 +32,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+
+def local_headers(source: Path) -> List[Path]:
+    """Every header of ``csrc`` that ``source`` includes with quotes,
+    directly or through another header, in the order first included."""
+    found: List[Path] = []
+    pending = [source]
+    while pending:
+        text = pending.pop(0).read_text()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            path = CSRC / name
+            if path not in found:
+                found.append(path)
+                pending.append(path)
+    return found
 
 
 def _nvcc() -> str:
@@ -57,10 +74,10 @@ class KernelLibrary:
         self.ptxas_log = ""
 
     def _path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source, *local_headers(self.source)]:
+            digest.update(path.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile if the hashed library is missing; returns its path and

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from retinanet_tpu.config import AnchorConfig, NMSConfig
-from retinanet_tpu.ops.anchors import Levels, flat_anchor_maps, image_hw
+from retinanet_tpu_torch.config import AnchorConfig, NMSConfig
+from retinanet_tpu_torch.ops.anchors import Levels, flat_anchor_maps, image_hw
 from retinanet_tpu_torch.ops import boxes as box_ops
 from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from retinanet_tpu.config import DataConfig
+from retinanet_tpu_torch.config import DataConfig
 
 
 def maybe_normalize(images: Tensor, data_cfg: DataConfig) -> Tensor:

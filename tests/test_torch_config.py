@@ -1,0 +1,73 @@
+"""The port's own copies of ``config.py`` and ``ops/anchors.py`` equal the
+JAX package's: every dataclass field by field with its default, and the
+anchor pyramid exactly (both are plain Python and numpy, so exact)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from retinanet_tpu import config as jcfg
+from retinanet_tpu.ops import anchors as janchors
+from retinanet_tpu_torch import config as tcfg
+from retinanet_tpu_torch.ops import anchors as tanchors
+
+_COPIED = ("AnchorConfig", "AssignConfig", "LossConfig", "ModelConfig",
+           "DataConfig", "TrainConfig", "NMSConfig", "Config")
+
+
+def _defaults(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            out[f.name] = f.default
+        else:
+            out[f.name] = f.default_factory()
+    return out
+
+
+@pytest.mark.parametrize("name", _COPIED)
+def test_config_dataclass_matches_jax(name):
+    """Same field names in the same order, same defaults.  ``Config`` omits
+    only ``parallel`` (the JAX mesh; the data-parallel slice adds its
+    own)."""
+    want = _defaults(getattr(jcfg, name))
+    got = _defaults(getattr(tcfg, name))
+    if name == "Config":
+        want.pop("parallel")
+        for key in want:
+            assert dataclasses.asdict(got[key]) == dataclasses.asdict(
+                want[key]), key
+        assert list(got) == list(want)
+        replaced = tcfg.Config().replace(
+            model=tcfg.ModelConfig(fused_train=True))
+        assert replaced.model.fused_train and replaced.data == tcfg.DataConfig()
+        return
+    assert list(got) == list(want)
+    assert got == want
+    assert dataclasses.is_dataclass(getattr(tcfg, name))
+    assert getattr(tcfg, name).__dataclass_params__.frozen
+
+
+def test_anchor_config_properties_match_jax():
+    assert tcfg.AnchorConfig().num_anchors == jcfg.AnchorConfig().num_anchors
+    assert tcfg.AnchorConfig().levels == jcfg.AnchorConfig().levels
+
+
+@pytest.mark.parametrize("size", [64, 640, (640, 448)])
+def test_anchor_pyramid_matches_jax(size):
+    want = janchors.build_levels()
+    got = tanchors.build_levels()
+    assert list(got) == list(want) and got.num_anchors == want.num_anchors
+    for pn in want:
+        assert got.grid_hw(pn, size) == want.grid_hw(pn, size)
+        assert got.stride(pn) == want.stride(pn)
+        np.testing.assert_array_equal(got[pn].anchor_sizes,
+                                      want[pn].anchor_sizes)
+        np.testing.assert_array_equal(got.normalized_anchor_sizes(pn, size),
+                                      want.normalized_anchor_sizes(pn, size))
+    a = tanchors.flat_anchor_maps(got, size)
+    b = janchors.flat_anchor_maps(want, size)
+    assert a.dtype == b.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+    assert tanchors.image_hw(size) == janchors.image_hw(size)

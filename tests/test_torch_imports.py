@@ -1,5 +1,6 @@
-"""The port and ``chip_smoke.py`` import and run their CPU paths with JAX
-and flax unavailable: the card's machine has no JAX.  Without a card,
+"""The port and ``chip_smoke.py`` import and run their CPU paths with JAX,
+flax and the JAX package unavailable: the card's machine has no JAX, and
+the port keeps its own copies of what it needs.  Without a card,
 ``chip_smoke.main`` returns 1 and prints nothing on stdout."""
 
 import os
@@ -16,6 +17,7 @@ _CODE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["retinanet_tpu"] = None
 import torch
 torch.set_num_threads(2)
 import chip_smoke
@@ -40,6 +42,7 @@ assert torch.equal(keep, nms._greedy_keep_mask(boxes, 0.5))
 assert bottleneck.fused_bottleneck.launches == 0
 assert nms.nms_keep_mask_batch.launches == 0
 assert sys.modules["jax"] is None and sys.modules["flax"] is None
+assert sys.modules["retinanet_tpu"] is None
 
 # No visible card: the smoke run refuses before it prints a result.
 assert not torch.cuda.is_available()
@@ -48,10 +51,41 @@ print("ok")
 """
 
 
-def test_port_imports_and_runs_without_jax():
+# Every module of the port, walked from the package, with the JAX package
+# itself blocked as well as jax, flax and optax.
+_WALK = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "optax", "retinanet_tpu"):
+    sys.modules[name] = None
+import retinanet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(retinanet_tpu_torch.__path__,
+                                               "retinanet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "retinanet_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+assert "retinanet_tpu_torch.train" in names, names
+print(len(names))
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = _run(_CODE)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "ok"
     assert "no CUDA device" in proc.stderr
+
+
+def test_every_port_module_imports_without_the_jax_package():
+    proc = _run(_WALK)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip()) >= 20

@@ -72,11 +72,12 @@ def test_detector_from_export(tmp_path):
     path = str(tmp_path / "m.npz")
     names = ["a", "b", "c", "d"]
     export_model(to_flax(flat), names, "resnet_50_dense", 64, path)
-    detector = Detector.from_export(path)
+    detector = Detector.from_export(path, device="cpu")
     assert detector.class_names == names
     assert detector.config.model.backbone == "resnet_50_dense"
     assert detector.config.data.image_size == 64
-    direct = Detector(detector.config, params_from_flax(flat), names)
+    direct = Detector(detector.config, params_from_flax(flat), names,
+                      device="cpu")
     images = (np.random.RandomState(5).rand(1, 64, 64, 3) * 255).astype(
         np.uint8)
     for got, want in zip(detector(images), direct(images)):
@@ -86,3 +87,14 @@ def test_detector_from_export(tmp_path):
 def test_benchmark_refuses_cpu():
     with pytest.raises(RuntimeError, match="card"):
         benchmark(Config(), device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """``Detector``, ``Detector.from_export`` and the benchmarks run on the
+    card unless the caller passes another device."""
+    import inspect
+
+    from retinanet_tpu_torch.train import benchmark_train
+    for fn in (Detector.__init__, Detector.from_export, benchmark,
+               benchmark_train):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
