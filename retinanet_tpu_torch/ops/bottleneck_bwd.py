@@ -20,7 +20,7 @@ kernels and GN vectors in fp32, ``dx`` bf16 NHWC.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +42,9 @@ _TARGET_CTAS = 1024
 
 Grads = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
               Tensor, Tensor]
+# (y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3))): the block's
+# conv outputs [B, HW, ·] and each GN's statistics [B, ·].
+Forward = Tuple[Tensor, Tensor, Tensor, Tuple[Tuple[Tensor, Tensor], ...]]
 
 
 def _moments(y: Tensor, groups: int, eps: float,
@@ -93,11 +96,53 @@ def _gn_backward(d: Tensor, y: Tensor, mean: Tensor, inv: Tensor,
     return dy, sg, sb
 
 
+def recompute_forward(x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
+                      k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor,
+                      g3: Tensor, b3: Tensor, eps: float = 1e-5,
+                      dtype: torch.dtype = torch.bfloat16) -> Forward:
+    """P1-P3 of the plain version: the forward, rounded as B1 rounds it.
+
+    Returns the conv outputs y1, y2 [B,HW,F] and y3 [B,HW,C] in ``dtype``
+    (products summed in fp32, float64 for ``dtype=torch.float64``) and
+    each GN's (mean, inv-std) [B, F or C] in that sum type.
+    """
+    bf = dtype
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    bsz, h, w, c = x.shape
+    f = k1.shape[0]
+    gf, gc = resolve_groups(f), resolve_groups(c)
+    xm = x.reshape(bsz, h * w, c).to(bf)
+    y1 = (xm.to(acc) @ k1.reshape(f, c).to(bf).t().to(acc)).to(bf)
+    mean1, inv1 = _moments(y1, gf, eps, acc)
+    a1 = torch.relu(_affine(y1, mean1, inv1, g1, b1))
+    a1_img = a1.view(bsz, h, w, f).permute(0, 3, 1, 2).to(acc)
+    y2 = F.conv2d(a1_img, k2.to(bf).to(acc), padding=1).permute(0, 2, 3, 1)
+    y2 = y2.reshape(bsz, h * w, f).to(bf)
+    mean2, inv2 = _moments(y2, gf, eps, acc)
+    a2 = torch.relu(_affine(y2, mean2, inv2, g2, b2))
+    y3 = (a2.to(acc) @ k3.reshape(c, f).to(bf).t().to(acc)).to(bf)
+    mean3, inv3 = _moments(y3, gc, eps, acc)
+    return y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3))
+
+
+def relu_inputs(x: Tensor, forward: Forward, g1: Tensor, b1: Tensor,
+                g2: Tensor, b2: Tensor, g3: Tensor, b3: Tensor
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The values the block's three relus test, from a forward: n1 =
+    GN1(y1), n2 = GN2(y2) [B,HW,F] and GN3(y3) + x [B,HW,C] (a bf16 add
+    in bf16).  Their signs are the backward's masks."""
+    y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3)) = forward
+    xm = x.reshape(y3.shape).to(y3.dtype)
+    return (_affine(y1, mean1, inv1, g1, b1), _affine(y2, mean2, inv2, g2, b2),
+            _affine(y3, mean3, inv3, g3, b3) + xm)
+
+
 def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
                                g1: Tensor, b1: Tensor, k2: Tensor,
                                g2: Tensor, b2: Tensor, k3: Tensor,
                                g3: Tensor, b3: Tensor, eps: float = 1e-5,
-                               dtype: torch.dtype = torch.bfloat16) -> Grads:
+                               dtype: torch.dtype = torch.bfloat16,
+                               forward: Optional[Forward] = None) -> Grads:
     """Plain PyTorch version of the seven passes, whole image at a time.
 
     ``dtype`` is the working type of activations and cotangents: bf16
@@ -106,6 +151,11 @@ def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
     (a ground truth for both).  Not autograd through
     ``fused_bottleneck_plain``: autograd reduces the GN β/γ cotangents
     elsewhere and in another precision.
+
+    ``forward`` replaces P1-P3 (``recompute_forward``) with a given
+    forward, such as the kernel's own (``fused_bottleneck_bwd(...,
+    return_forward=True)``): the relu masks are then the kernel's, and
+    only the order of the fp32 sums parts the two versions.
     """
     bf = dtype
     acc = torch.float64 if dtype == torch.float64 else torch.float32
@@ -123,20 +173,15 @@ def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
         return a.to(acc) @ b.to(acc)
 
     # P1-P3: the forward, rounded as B1 rounds it.
-    y1 = mm(xm, w1.t()).to(bf)
-    mean1, inv1 = _moments(y1, gf, eps, acc)
-    a1 = torch.relu(_affine(y1, mean1, inv1, g1, b1))
-    a1_img = a1.view(bsz, h, w, f).permute(0, 3, 1, 2).to(acc)
-    y2 = F.conv2d(a1_img, w2.to(acc), padding=1).permute(0, 2, 3, 1)
-    y2 = y2.reshape(bsz, m, f).to(bf)
-    mean2, inv2 = _moments(y2, gf, eps, acc)
-    n2 = _affine(y2, mean2, inv2, g2, b2)
+    if forward is None:
+        forward = recompute_forward(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
+                                    eps, dtype)
+    y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3)) = forward
+    n1, n2, pre = relu_inputs(x, forward, g1, b1, g2, b2, g3, b3)
+    a1_img = torch.relu(n1).view(bsz, h, w, f).permute(0, 3, 1, 2).to(acc)
     a2 = torch.relu(n2)
-    y3 = mm(a2, w3.t()).to(bf)
-    mean3, inv3 = _moments(y3, gc, eps, acc)
 
     # P4: output relu mask; GN3 backward.
-    pre = _affine(y3, mean3, inv3, g3, b3) + xm
     dn3 = torch.where(pre > 0, dout, torch.zeros_like(dout))
     dy3, dg3, db3 = _gn_backward(dn3, y3, mean3, inv3, g3, gc)
 
@@ -151,7 +196,6 @@ def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
     dy2_img = dy2.view(bsz, h, w, f).permute(0, 3, 1, 2).to(acc)
     da1 = F.conv_transpose2d(dy2_img, w2.to(acc), padding=1)
     da1 = da1.permute(0, 2, 3, 1).reshape(bsz, m, f).to(bf)
-    n1 = _affine(y1, mean1, inv1, g1, b1)
     dn1 = torch.where(n1 > 0, da1, torch.zeros_like(da1))
     dk2 = torch.nn.grad.conv2d_weight(a1_img, tuple(k2.shape), dy2_img,
                                       padding=1)
@@ -176,18 +220,25 @@ def _slices(rows_m: int, cols_n: int, taps: int, k_rows: int) -> int:
 def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
                          b1: Tensor, k2: Tensor, g2: Tensor, b2: Tensor,
                          k3: Tensor, g3: Tensor, b3: Tensor,
-                         eps: float = 1e-5) -> Grads:
+                         eps: float = 1e-5, return_forward: bool = False
+                         ) -> Union[Grads, Tuple[Grads, Forward]]:
     """Gradients of ``fused_bottleneck`` with respect to every input.
 
     x, dout [B,H,W,C] bf16 (NHWC); kernels OIHW as the port stores them:
     k1 [F,C,1,1], k2 [F,F,3,3], k3 [C,F,1,1]; g*/b* the GN affines.  Returns
     ``(dx, dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3)``: dx bf16, the rest
     fp32 in the parameters' shapes.  On CUDA, C and F must be multiples of
-    64.
+    64.  ``return_forward`` also returns the forward the backward
+    recomputed (a ``Forward``: bf16 y1..y3, fp32 GN mean/inv), for holding
+    the plain version to the same relu masks.
     """
     if not x.is_cuda:
-        return fused_bottleneck_bwd_plain(x, dout, k1, g1, b1, k2, g2, b2,
-                                          k3, g3, b3, eps)
+        grads = fused_bottleneck_bwd_plain(x, dout, k1, g1, b1, k2, g2, b2,
+                                           k3, g3, b3, eps)
+        if return_forward:
+            return grads, recompute_forward(x, k1, g1, b1, k2, g2, b2, k3,
+                                            g3, b3, eps)
+        return grads
     bsz, h, w, c = x.shape
     f = k1.shape[0]
     if (k1.shape != (f, c, 1, 1) or k2.shape != (f, f, 3, 3)
@@ -260,7 +311,15 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     fused_bottleneck_bwd.launches += 1
     dg1, db1, dg2, db2, dg3, db3 = (t.view(p.shape) for t, p in
                                     zip(dgb, affines))
-    return dx, dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3
+    grads = dx, dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3
+    if not return_forward:
+        return grads
+    # mv holds mean1, inv1, mean2, inv2, mean3, inv3, each [B, F or C]
+    # packed at the start of its [B*C] row.
+    rows = mv.view(6, bsz * c)
+    stats = tuple(tuple(rows[2 * i + j, :bsz * n].view(bsz, n)
+                        for j in (0, 1)) for i, n in enumerate((f, f, c)))
+    return grads, (y1, y2, y3, stats)
 
 
 fused_bottleneck_bwd.launches = 0

@@ -1,25 +1,12 @@
-"""Where the device time goes: a ``torch.profiler`` breakdown of the port's
-serving batch and training step on the card.
+"""Where the device time goes: a ``torch.profiler`` breakdown of one
+call on the card (``device_breakdown``), by kernel group.
 
-    python -m retinanet_tpu_torch.utils.profiling \
-        [--serve-batches 8 128] [--train-batches 8 32]
-
-It profiles the flagship (resnet_50_dense, 640 px, 80 classes, bf16,
-seeded weights) serving through ``Detector`` and training through
-``make_train_step`` (momentum SGD, the fixed batch of ``benchmark_train``),
-each on its kernel path and its plain path, and prints one JSON line per
-run: wall ms per call (host clock around
-synchronised calls), device busy ms per call (the union of kernel spans),
-the idle share, kernels per call, peak memory, device ms per kernel
-group, and the longest kernels by name.  Needs a CUDA device.
+``chip_smoke.py`` runs it on the flagship's serving batch and training
+step, each on its kernel path and its plain path.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import json
-import subprocess
 import time
 from typing import Callable, Dict, List, Tuple
 
@@ -42,7 +29,8 @@ GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 )
 
 
-TOP_KERNELS = 15  # kernels listed by name, the longest first
+TOP_KERNELS = 8  # kernels listed by name, the longest first
+CALLS = 3  # profiled calls, after one warm call
 
 
 def group_of(name: str) -> str:
@@ -63,19 +51,21 @@ def _union_us(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
-def device_breakdown(call: Callable[[], None], calls: int = 3
-                     ) -> Dict[str, object]:
-    """Profile ``calls`` synchronised calls after one warm call."""
+def device_breakdown(call: Callable[[], None]) -> Dict[str, object]:
+    """Profile ``CALLS`` synchronised calls of ``call`` after a warm one:
+    wall ms per call (host clock), device busy ms per call (the union of
+    kernel spans), the idle share, kernels per call, peak memory, device
+    ms per kernel group and the longest kernels by name."""
     call()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
+        for _ in range(CALLS):
             call()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls
+        wall = (time.perf_counter() - t0) / CALLS
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     by_group: Dict[str, float] = {}
@@ -85,92 +75,15 @@ def device_breakdown(call: Callable[[], None], calls: int = 3
         g = group_of(e.name)
         by_group[g] = by_group.get(g, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy = _union_us(spans) / 1e3 / calls
+    busy = _union_us(spans) / 1e3 / CALLS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return {
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
-        "kernels_per_call": len(kernels) / calls,
+        "kernels_per_call": len(kernels) / CALLS,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "device_ms": {g: v / 1e3 / calls for g, v in
+        "device_ms": {g: v / 1e3 / CALLS for g, v in
                       sorted(by_group.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms": [[name[:120], v / 1e3 / calls] for name, v in top],
+        "top_kernels_ms": [[name[:120], v / 1e3 / CALLS] for name, v in top],
     }
-
-
-def _serving(batch: int, kernels: bool, device) -> Callable[[], None]:
-    from retinanet_tpu_torch.config import Config
-    from retinanet_tpu_torch.export import init_params
-    from retinanet_tpu_torch.infer import Detector
-
-    config = Config()
-    config = config.replace(
-        model=dataclasses.replace(config.model, backbone="resnet_50_dense",
-                                  fused_blocks=kernels, fused_res2=kernels),
-        data=dataclasses.replace(config.data, image_size=640))
-    detector = Detector(config, init_params(
-        config, torch.Generator().manual_seed(0), 80),
-        [str(i) for i in range(80)], device)
-    images = torch.randn(batch, 640, 640, 3,
-                         generator=torch.Generator().manual_seed(1)).to(device)
-    return lambda: detector(images)
-
-
-def _training(batch: int, kernels: bool, device) -> Callable[[], None]:
-    from retinanet_tpu_torch.config import Config
-    from retinanet_tpu_torch.export import init_params
-    from retinanet_tpu_torch.models.retinanet import RetinaNet
-    from retinanet_tpu_torch.ops.anchors import build_levels
-    from retinanet_tpu_torch.train import (create_train_state,
-                                           make_train_step, synthetic_batch)
-
-    config = Config()
-    config = config.replace(
-        model=dataclasses.replace(config.model, backbone="resnet_50_dense",
-                                  fused_train=kernels),
-        data=dataclasses.replace(config.data, image_size=640,
-                                 batch_size=batch))
-    model = RetinaNet.from_config(config.model, 9, 80).to(device)
-    box = [create_train_state(model, config, init_params(
-        config, torch.Generator().manual_seed(0), 80))]
-    step = make_train_step(model, build_levels(), config,
-                           with_metrics=False)
-    data = synthetic_batch(batch, 640, config.assign.max_boxes, device)
-
-    def call():
-        box[0], _ = step(box[0], *data)
-
-    return call
-
-
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--serve-batches", type=int, nargs="*",
-                        default=[8, 128])
-    parser.add_argument("--train-batches", type=int, nargs="*",
-                        default=[8, 32])
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA device")
-    device = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    runs = [("serving", _serving, b) for b in args.serve_batches] + [
-        ("training", _training, b) for b in args.train_batches]
-    for slice_name, build, batch in runs:
-        for path in ("kernels", "plain"):
-            call = build(batch, path == "kernels", device)
-            result = device_breakdown(call)
-            print(json.dumps({"slice": slice_name, "path": path,
-                              "batch": batch, "card": card, **result}),
-                  flush=True)
-            del call
-            torch.cuda.empty_cache()
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

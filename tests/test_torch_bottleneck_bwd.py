@@ -17,7 +17,8 @@ from retinanet_tpu_torch.export import params_from_flax
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.ops import bottleneck
 from retinanet_tpu_torch.ops.bottleneck_bwd import (
-    fused_bottleneck_bwd, fused_bottleneck_bwd_plain, fused_bottleneck_train)
+    fused_bottleneck_bwd, fused_bottleneck_bwd_plain, fused_bottleneck_train,
+    recompute_forward, relu_inputs)
 
 torch.set_num_threads(2)
 
@@ -170,6 +171,39 @@ def test_cpu_wrapper_runs_the_plain_version(block):
     assert torch.equal(xg.grad, got[0])
     for leaf, g in zip(leaves, got[1:]):
         assert leaf.grad.shape == leaf.shape and torch.equal(leaf.grad, g)
+
+
+def test_plain_on_a_given_forward(block):
+    """``forward=`` replaces the plain version's recompute: given its own
+    ``recompute_forward`` the gradients are the same bit for bit, and the
+    CPU wrapper's ``return_forward`` hands back that forward.  The third
+    relu input is the block's pre-activation: its relu is the plain
+    forward's output exactly.  Another forward changes the gradients."""
+    x, dout, flat, _ = block
+    xt, dt, *params = _port_args(x, dout, flat)
+    fwd = recompute_forward(xt, *params)
+    y1, y2, y3, stats = fwd
+    assert [tuple(t.shape) for t in (y1, y2, y3)] == [
+        (B, H * W, F), (B, H * W, F), (B, H * W, C)]
+    assert all(t.dtype == torch.bfloat16 for t in (y1, y2, y3))
+    assert [tuple(t.shape) for pair in stats for t in pair] == [
+        (B, F)] * 4 + [(B, C)] * 2
+    want = fused_bottleneck_bwd_plain(xt, dt, *params)
+    for a, b in zip(want, fused_bottleneck_bwd_plain(xt, dt, *params,
+                                                     forward=fwd)):
+        assert torch.equal(a, b)
+    grads, got_fwd = fused_bottleneck_bwd(xt, dt, *params,
+                                          return_forward=True)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got_fwd[:3], fwd[:3]):
+        assert torch.equal(a, b)
+    pre = relu_inputs(xt, fwd, *params[1:3], *params[4:6], *params[7:9])[2]
+    assert torch.equal(torch.relu(pre).reshape(xt.shape),
+                       bottleneck.fused_bottleneck_plain(xt, *params))
+    moved = fused_bottleneck_bwd_plain(
+        xt, dt, *params, forward=(y1, y2, -y3, stats))
+    assert not torch.equal(moved[0], want[0])
 
 
 def test_fused_train_module_path_matches_plain_block():

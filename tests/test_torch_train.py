@@ -79,7 +79,8 @@ def jax_run():
         state, *map(jnp.asarray, batch), jax.random.PRNGKey(1))
     new_flat = {"/".join(k): np.asarray(v) for k, v in
                 traverse_util.flatten_dict(new_state.params).items()}
-    reg = float(jax_l2(params, "resnet_50_dense", 1e-4))
+    reg = float(jax.jit(jax_l2, static_argnums=(1, 2))(
+        params, "resnet_50_dense", 1e-4))
     return flat, batch, {k: np.asarray(v) for k, v in metrics.items()}, \
         new_flat, reg
 
