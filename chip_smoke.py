@@ -7,8 +7,8 @@ Needs one CUDA card of capability 9.0 (H100); exits non-zero without one.
 Phases, one line each (any failure raises and the exit code is non-zero):
 
 1. device: torch version, ``nvidia-smi`` name and power limit, capability;
-2. build: the three hand-written kernels with ``nvcc``, started together;
-   ptxas register/smem/spill lines;
+2. build: the seven hand-written kernel sources with ``nvcc``, started
+   together; ptxas register/smem/spill lines;
 3. B1 check: fused bottleneck kernel vs its plain version at the four
    stage shapes of the 640-px flagship (batch 2 and 8, randomized GN
    γ/β), and bitwise repeatability;
@@ -32,13 +32,35 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    parameters (losses, grad_norm, and every parameter's gradient leaf by
    leaf), the same comparison for planted B3 faults, each of which must
    be rejected, and the loss over 10 steps;
-8. timing: serving images/s and p50 at batch 8 and 128; training step ms,
-   images/s and peak memory of both paths at batch 8 and 32; each kernel
-   vs its plain version at the slices' shapes (CUDA events after warmup),
-   with its bound at the card's published peaks;
-9. breakdown: ``torch.profiler`` device time by kernel group, idle share
-   and kernels per call of both paths, serving at batch 8 and 128 and
-   training at batch 8 and 32 (``utils/profiling.py``).
+8. B4/B5/B7 checks: fused GroupNorm+activation vs its plain version at
+   the P3/P4 head shapes (elu) and the stem shape (relu), bf16 and fp32,
+   and its backward vs autograd of the plain forward; the projection
+   block at res2 b0 (batch 2 and 8) to B1's bound; the stem epilogue
+   bitwise; each bitwise repeatable;
+9. int8 serving: the flagship with ``quantize="int8"`` (and the fused
+   flags, which the int8 gate ignores) through ``Detector`` at batch 8:
+   59 B6 launches and no B1/B5, heads vs the int8 plain path; then B6 at
+   every distinct int8 conv shape that run gave, bitwise;
+10. ``fused_proj`` serving: 12 B1 + 1 B5 launches per forward, heads vs
+   the unfused plain path;
+11. entry points: ``GroupNorm(use_kernel=True)`` on the P3/P4 head
+   activations and ``fused_stem`` on a 640-px batch (B4, B7: no model
+   config reaches them, as in the JAX package); ``fused_stem`` equals the
+   model's stem layers bitwise;
+12. timing: serving images/s and p50 at batch 8 and 128 (bf16 kernel,
+   int8 and plain paths; ``fused_proj`` against the same config without
+   it at 128); training step ms, images/s and peak memory of both paths
+   at batch 8 and 32; each kernel vs its plain version (and a PyTorch
+   call computing the same function, where one exists) at the paths'
+   shapes (CUDA events after warmup), with its bound at the card's
+   published peaks;
+13. breakdown: ``torch.profiler`` device time by kernel group, idle share
+   and kernels per call: serving at batch 8 and 128 (kernel, int8 and
+   plain paths) and training at batch 8 and 32 (``utils/profiling.py``).
+
+``--phases`` runs a comma-separated subset (``build,checks,int8,proj,
+entry,serving,training,timing,breakdown``) and prints no result lines:
+for a first call after a kernel change.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -59,16 +81,22 @@ import torch
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.export import init_params
 from retinanet_tpu_torch.infer import Detector, benchmark
+from retinanet_tpu_torch.models.layers import (Conv, ConvGN, GroupNorm,
+                                               max_pool_same, resolve_groups)
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops import bottleneck as b1
 from retinanet_tpu_torch.ops import bottleneck_bwd as b3
+from retinanet_tpu_torch.ops import groupnorm as b4
+from retinanet_tpu_torch.ops import int8_conv as b6
 from retinanet_tpu_torch.ops import nms as b2
+from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
 from retinanet_tpu_torch.train import (benchmark_train, create_train_state,
                                        make_train_step, synthetic_batch)
 from retinanet_tpu_torch.utils.profiling import device_breakdown
 
+SIZE = 640  # the canvas side of every phase
 # (H, W, C, F) of the 12 identity blocks at 640 px, with their counts.
 STAGES = (("res2", 160, 160, 256, 64, 2), ("res3", 80, 80, 512, 128, 3),
           ("res4", 40, 40, 1024, 256, 5), ("res5", 20, 20, 2048, 512, 2))
@@ -135,9 +163,27 @@ TRAIN_FAULTS = {
     "half_dx": lambda g: (g[0] * 0.5, *g[1:]),
     "dx_images_rolled": lambda g: (g[0].roll(1, 0), *g[1:]),
 }
-# Published peaks of one H100 SXM (dense bf16 tensor cores, fp32 outside
-# them, HBM), against which each kernel's bound is stated.
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Published peaks of one H100 SXM (dense bf16 and int8 tensor cores, fp32
+# outside them, HBM), against which each kernel's bound is stated.
+PEAK_BF16, PEAK_INT8, PEAK_FP32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
+# B4 kernel vs its plain version: both apply an fp32 affine from fp32
+# statistics summed in another order, so outputs may sit one bf16 step
+# apart: |Δ| ≤ B4_REL·max(1, |ref|) per element (2⁻⁷ in bf16, 1e-4 in
+# fp32).  Its backward (the plain fp32 formula of the TPU op's _bwd)
+# against autograd of the plain forward: max|Δ| ≤ 1e-3·max|ref| for dx,
+# dγ and dβ (sums of 10⁵-10⁶ fp32 terms in another order).
+B4_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+B4_GRAD_REL = 1e-3
+# Head activations GN+ELU normalizes, and the stem's GN+relu input, at
+# 640 px: (name, H, W, C, activation).
+B4_SHAPES = (("P3", 80, 80, 256, "elu"), ("P4", 40, 40, 256, "elu"),
+             ("stem", 320, 320, 64, "relu"))
+# res2 b0, the stride-1 projection block at 640 px: H, W, Cin, C, F.
+RES2_B0 = (160, 160, 64, 256, 64)
+# The stem conv's output at 640 px: H, W, C.
+STEM = (320, 320, 64)
+PHASES = ("build", "checks", "int8", "proj", "entry", "serving", "training",
+          "timing", "breakdown")
 
 
 def log(phase: str, **fields) -> None:
@@ -165,17 +211,24 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def he_kernel(shape, gen):
+    """He-normal OIHW kernel."""
+    fan_in = shape[1] * shape[2] * shape[3]
+    return torch.randn(*shape, generator=gen) * math.sqrt(2.0 / fan_in)
+
+
+def gn_affine(n, gen):
+    """Randomized GN γ ≈ 1 ± 0.3 and β ≈ ±0.3."""
+    return (1.0 + 0.3 * torch.randn(n, generator=gen),
+            0.3 * torch.randn(n, generator=gen))
+
+
 def block_inputs(batch, h, w, c, f, gen, device):
     """Random bf16 block input and He-normal kernels, randomized GN γ/β."""
-    def he(*shape):
-        fan_in = shape[1] * shape[2] * shape[3]
-        return torch.randn(*shape, generator=gen) * math.sqrt(2.0 / fan_in)
     x = torch.randn(batch, h, w, c, generator=gen).to(torch.bfloat16)
     params = []
     for shape in ((f, c, 1, 1), (f, f, 3, 3), (c, f, 1, 1)):
-        n = shape[0]
-        params += [he(*shape), 1.0 + 0.3 * torch.randn(n, generator=gen),
-                   0.3 * torch.randn(n, generator=gen)]
+        params += [he_kernel(shape, gen), *gn_affine(shape[0], gen)]
     return x.to(device), [p.to(device) for p in params]
 
 
@@ -294,6 +347,368 @@ def check_b3(device) -> float:
     return worst
 
 
+def check_b4(device) -> float:
+    """B4 vs its plain version at the head and stem shapes (batch 8, bf16
+    and fp32), bitwise repeatable; its backward vs autograd of the plain
+    forward at P3 in fp32.  Returns the worst max |Δ| of the forward."""
+    gen = torch.Generator().manual_seed(6)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, h, w, c, act in B4_SHAPES:
+            x = (2 * torch.randn(8, h, w, c, generator=gen) + 0.5).to(dtype)
+            gamma, beta = gn_affine(c, gen)
+            x, gamma, beta = x.to(device), gamma.to(device), beta.to(device)
+            groups = resolve_groups(c)
+            with torch.no_grad():
+                ref = b4.fused_group_norm_act_plain(x, gamma, beta, groups,
+                                                    1e-5, act).float()
+                out = b4.fused_group_norm_act(x, gamma, beta, groups, 1e-5,
+                                              act)
+                again = b4.fused_group_norm_act(x, gamma, beta, groups, 1e-5,
+                                                act)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs()
+            over = int((err > B4_REL[dtype] * ref.abs().clamp(min=1.0)
+                        ).sum().item())
+            log("b4-check", shape=[8, h, w, c], at=name, activation=act,
+                dtype=str(dtype), max_abs_err=err.max().item(),
+                mean_abs_err=err.mean().item(),
+                bitwise_equal_share=(err == 0).float().mean().item(),
+                over_bound=over, bitwise_repeat=bool(torch.equal(out, again)))
+            if over or not torch.equal(out, again):
+                raise AssertionError(f"B4 disagrees with its plain version "
+                                     f"or is not repeatable at {name}, "
+                                     f"{dtype}")
+            worst = max(worst, err.max().item())
+            del x, ref, out, again
+    h, w, c = 80, 80, 256
+    x = torch.randn(8, h, w, c, generator=gen).to(device)
+    gamma, beta = (t.to(device) for t in gn_affine(c, gen))
+    cot = torch.randn(8, h, w, c, generator=gen).to(device)
+    grads = []
+    for forward in (b4.fused_group_norm_act, b4.fused_group_norm_act_plain):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, gamma, beta)]
+        out = forward(*leaves, 32, 1e-5, "elu")
+        grads.append(torch.autograd.grad((out * cot).sum(), leaves))
+    rel = {k: ((g - r).abs().max() / r.abs().max()).item()
+           for k, g, r in zip(("dx", "dgamma", "dbeta"), *grads)}
+    log("b4-grad-check", shape=[8, h, w, c], activation="elu",
+        max_rel=rel, bound=B4_GRAD_REL)
+    if max(rel.values()) > B4_GRAD_REL:
+        raise AssertionError(f"B4's backward disagrees with autograd: {rel}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def proj_inputs(batch, gen, device):
+    """Random bf16 res2-b0 input, He kernels k1, k2, k3, kp (OIHW) and
+    randomized GN γ/β, in ``fused_bottleneck_proj``'s argument order."""
+    h, w, cin, c, f = RES2_B0
+    x = torch.randn(batch, h, w, cin, generator=gen).to(torch.bfloat16)
+    params = []
+    for shape in ((f, cin, 1, 1), (f, f, 3, 3), (c, f, 1, 1),
+                  (c, cin, 1, 1)):
+        params += [he_kernel(shape, gen), *gn_affine(shape[0], gen)]
+    return x.to(device), [p.to(device) for p in params]
+
+
+def check_b5(device) -> float:
+    """B5 vs its plain version at res2 b0, batch 2 and 8, to B1's bound;
+    bitwise repeatable."""
+    gen = torch.Generator().manual_seed(7)
+    worst = 0.0
+    for batch in (2, 8):
+        x, params = proj_inputs(batch, gen, device)
+        ref = b1.fused_bottleneck_proj_plain(x, *params).float()
+        out = b1.fused_bottleneck_proj(x, *params)
+        again = b1.fused_bottleneck_proj(x, *params)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs()
+        bound = B1_REL * ref.abs().clamp(min=1.0)
+        log("b5-check", shape=list(x.shape), C=RES2_B0[3], F=RES2_B0[4],
+            max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+            over_bound=int((err > bound).sum().item()),
+            bitwise_repeat=bool(torch.equal(out, again)))
+        if (err > bound).any() or err.mean().item() > B1_MEAN:
+            raise AssertionError(f"B5 disagrees with its plain version at "
+                                 f"batch {batch}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"B5 is not bitwise repeatable at batch "
+                                 f"{batch}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def check_b7(device) -> float:
+    """B7 vs its plain version at the stem's shape (batch 2 and 8) and at
+    odd sides: bitwise equal and repeatable."""
+    gen = torch.Generator().manual_seed(8)
+    for batch, (h, w, c) in ((2, STEM), (8, STEM), (2, (75, 57, 64))):
+        y = torch.randn(batch, h, w, c, generator=gen).to(
+            torch.bfloat16).to(device)
+        scale = (torch.rand(batch, c, generator=gen) + 0.5).to(device)
+        shift = (0.3 * torch.randn(batch, c, generator=gen)).to(device)
+        ref = b7.gn_relu_maxpool_plain(y, scale, shift)
+        out = b7.gn_relu_maxpool(y, scale, shift)
+        again = b7.gn_relu_maxpool(y, scale, shift)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        log("b7-check", shape=[batch, h, w, c], out=list(out.shape),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            bitwise_equal=equal, bitwise_repeat=bool(torch.equal(out, again)))
+        if not equal or not torch.equal(out, again):
+            raise AssertionError(f"B7 differs from its plain version at "
+                                 f"{[batch, h, w, c]}")
+    return 0.0
+
+
+def compare_heads(label, got, want):
+    """Log and check each head level of ``got`` against ``want`` within
+    HEAD_RTOL/HEAD_ATOL; returns the share of bitwise-equal elements."""
+    equal = total = 0
+    for head in ("classifications", "regressions"):
+        for pn in ("P3", "P4", "P5", "P6", "P7"):
+            g, w = got[head][pn].float(), want[head][pn].float()
+            err = (g - w).abs()
+            corr = torch.corrcoef(torch.stack([g.ravel(), w.ravel()]))[0, 1]
+            ok = bool((err <= HEAD_ATOL + HEAD_RTOL * w.abs()).all())
+            equal += int((err == 0).sum().item())
+            total += err.numel()
+            log(f"{label}-heads", head=head, level=pn,
+                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                ref_std=w.std().item(), corr=corr.item(),
+                bitwise_equal_share=(err == 0).float().mean().item(),
+                within_bound=ok)
+            if not ok:
+                raise AssertionError(f"{label}: heads disagree at "
+                                     f"{head}/{pn}")
+    return equal / total
+
+
+def int8_config(batch: int = 8) -> Config:
+    """The bench serving config with ``quantize="int8"`` (``evaluate
+    --quantize int8``), ``fused_proj`` on as well: the int8 gate must keep
+    every block off B1 and B5."""
+    config = flagship_config(batch)
+    return config.replace(model=dataclasses.replace(
+        config.model, quantize="int8", fused_proj=True))
+
+
+def check_int8_serving(device):
+    """int8 serving through ``Detector`` at batch 8, counted: one B6 launch
+    per quantized conv (the 52 block convs of the backbone, the stem
+    excepted, and the FPN's 7), no B1 or B5; heads vs the same model on
+    the plain int8 convolution.  Returns the launches and the distinct
+    int8 conv shapes of the run with their counts."""
+    config = int8_config()
+    names = [str(i) for i in range(80)]
+    state = init_params(config, torch.Generator().manual_seed(0), 80)
+    detector = Detector(config, state, names, device)
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    convs = {name: m for name, m in detector.model.named_modules()
+             if isinstance(m, Conv) and m.quantize}
+    shapes = {}
+
+    def record(module, inputs, output):
+        b, c, h, w = inputs[0].shape
+        key = (b, h, w, c, module.kernel.shape[0], module.kernel_size,
+               module.strides)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in convs.values()]
+    # The main path, counted: one int8 serving batch.
+    b1.fused_bottleneck.launches = 0
+    b1.fused_bottleneck_proj.launches = 0
+    b6.int8_conv.launches = 0
+    out = detector(images)
+    torch.cuda.synchronize()
+    launches = {"b6": b6.int8_conv.launches,
+                "b1": b1.fused_bottleneck.launches,
+                "b5": b1.fused_bottleneck_proj.launches}
+    for hook in hooks:
+        hook.remove()
+    backbone = sum(n.startswith("backbone_net.") for n in convs)
+    log("int8-launches", **launches, quantized_convs=len(convs),
+        backbone_convs=backbone, fpn_convs=len(convs) - backbone,
+        stem_quantized=detector.model.backbone_net.ConvGN_0.Conv_0.quantize,
+        distinct_shapes=len(shapes))
+    if launches != {"b6": 59, "b1": 0, "b5": 0} or len(convs) != 59:
+        raise AssertionError(f"expected 59 B6 launches (52 backbone + 7 FPN "
+                             f"convs) and no B1/B5 per int8 forward, got "
+                             f"{launches} over {len(convs)} quantized convs")
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in
+                 (out.boxes, out.scores))
+    log("int8-output", boxes=list(out.boxes.shape),
+        valid=int(out.valid.sum().item()), finite=finite)
+    if not finite or tuple(out.boxes.shape) != (8, 1000, 4):
+        raise AssertionError("bad int8 detections")
+
+    real = b6.int8_conv
+    with torch.inference_mode():
+        got = detector.model(images)
+        b6.int8_conv = (lambda x, kernel, strides=1, out_dtype=None:
+                        b6.int8_conv_plain(x, kernel, strides,
+                                           out_dtype or x.dtype))
+        try:
+            want = detector.model(images)
+        finally:
+            b6.int8_conv = real
+    share = compare_heads("int8", got, want)
+    log("int8-vs-plain", bitwise_equal_share=share)
+    del detector, got, want
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def int8_case(key, gen, device):
+    b, h, w, c, f, k, s = key
+    x = torch.randn(b, h, w, c, generator=gen).to(torch.bfloat16)
+    return x.to(device), he_kernel((f, c, k, k), gen).to(device)
+
+
+def check_b6(device, shapes) -> float:
+    """B6 vs its plain version at every distinct int8 conv shape of the
+    640-px flagship at batch 8: bitwise equal and repeatable."""
+    gen = torch.Generator().manual_seed(9)
+    for key, count in sorted(shapes.items()):
+        x, kernel = int8_case(key, gen, device)
+        s = key[-1]
+        ref = b6.int8_conv_plain(x, kernel, s, torch.bfloat16)
+        out = b6.int8_conv(x, kernel, s)
+        again = b6.int8_conv(x, kernel, s)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        log("b6-check", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
+            convs_per_forward=count, out=list(out.shape),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            bitwise_equal=equal, bitwise_repeat=bool(torch.equal(out, again)))
+        if not equal or not torch.equal(out, again):
+            raise AssertionError(f"B6 differs from its plain version at "
+                                 f"{key}")
+        del x, kernel, ref, out, again
+    # The JAX entry point, with bias and relu, at a head conv's shape.
+    x, kernel = int8_case((8, 80, 80, 256, 256, 3, 1), gen, device)
+    w = kernel.permute(2, 3, 1, 0)
+    bias = torch.randn(256, generator=gen).to(device)
+    out = b6.int8_conv3x3(x, w, bias, relu=True)
+    ref = b6.int8_conv_plain(x, kernel, 1, torch.bfloat16, bias, True)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, ref))
+    log("b6-check", entry="int8_conv3x3", shape=list(x.shape), F=256,
+        bias=True, relu=True, bitwise_equal=equal)
+    if not equal:
+        raise AssertionError("int8_conv3x3 differs from its plain version")
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def check_fused_proj(device):
+    """``fused_proj`` serving through ``Detector`` at batch 8, counted:
+    12 B1 + 1 B5 per forward; heads vs the unfused plain path."""
+    config = flagship_config()
+    config = config.replace(model=dataclasses.replace(config.model,
+                                                      fused_proj=True))
+    state = init_params(config, torch.Generator().manual_seed(0), 80)
+    detector = Detector(config, state, [str(i) for i in range(80)], device)
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    # The main path, counted: one fused_proj serving batch.
+    b1.fused_bottleneck.launches = 0
+    b1.fused_bottleneck_proj.launches = 0
+    out = detector(images)
+    torch.cuda.synchronize()
+    launches = {"b1": b1.fused_bottleneck.launches,
+                "b5": b1.fused_bottleneck_proj.launches}
+    log("proj-launches", **launches)
+    if launches != {"b1": 12, "b5": 1}:
+        raise AssertionError(f"expected 12 B1 + 1 B5 launches per "
+                             f"fused_proj forward, got {launches}")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in
+               (out.boxes, out.scores)):
+        raise AssertionError("non-finite fused_proj detections")
+    plain = RetinaNet.from_config(flagship_config(fused=False).model, 9, 80)
+    plain.load_state_dict(state)
+    plain.to(device).eval()
+    with torch.inference_mode():
+        share = compare_heads("proj", detector.model(images), plain(images))
+    log("proj-vs-plain", bitwise_equal_share=share)
+    del detector, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stem_inputs(gen, device):
+    """A 640-px batch of 8 and He 7×7 stem weights (HWIO), GN γ/β."""
+    x = torch.randn(8, SIZE, SIZE, 3, generator=gen)
+    w = he_kernel((64, 3, 7, 7), gen).permute(2, 3, 1, 0).contiguous()
+    return [t.to(device) for t in (x, w, *gn_affine(64, gen))]
+
+
+def drive_entry_points(device):
+    """B4 and B7 have no model path (no config reaches them, as in the JAX
+    package), so their main path is their opt-in entry points, counted:
+    ``GroupNorm(use_kernel=True)`` on the P3 and P4 head activations
+    (elu, bf16, batch 8) and ``fused_stem`` on a 640-px batch of 8.  The
+    modules' outputs are held to B4's bound against the plain version,
+    and ``fused_stem`` must equal the model's stem layers bitwise."""
+    gen = torch.Generator().manual_seed(10)
+    mods, xs = [], []
+    for _, h, w, c, act in B4_SHAPES[:2]:
+        mod = GroupNorm(c, activation=act, use_kernel=True)
+        with torch.no_grad():
+            mod.gamma.copy_(gn_affine(c, gen)[0])
+            mod.beta.copy_(gn_affine(c, gen)[1])
+        mods.append(mod.to(device))
+        xs.append(torch.randn(8, c, h, w, generator=gen).to(
+            torch.bfloat16).to(device).contiguous(
+            memory_format=torch.channels_last))
+    x, w, gamma, beta = stem_inputs(gen, device)
+    # The main path, counted: both GroupNorms and one stem.
+    b4.fused_group_norm_act.launches = 0
+    b7.gn_relu_maxpool.launches = 0
+    with torch.no_grad():
+        outs = [m(t) for m, t in zip(mods, xs)]
+        pooled = b7.fused_stem(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    launches = {"b4": b4.fused_group_norm_act.launches,
+                "b7": b7.gn_relu_maxpool.launches}
+    log("entry-launches", **launches)
+    if launches != {"b4": 2, "b7": 1}:
+        raise AssertionError(f"expected 2 B4 and 1 B7 launches, got "
+                             f"{launches}")
+    for (name, h, wd, c, act), mod, t, out in zip(B4_SHAPES, mods, xs, outs):
+        ref = b4.fused_group_norm_act_plain(
+            t.permute(0, 2, 3, 1), mod.gamma, mod.beta, resolve_groups(c),
+            1e-5, act).permute(0, 3, 1, 2).float()
+        err = (out.float() - ref).abs()
+        over = int((err > B4_REL[torch.bfloat16] * ref.abs().clamp(min=1.0)
+                    ).sum().item())
+        log("entry-b4", at=name, max_abs_err=err.max().item(),
+            over_bound=over)
+        if over:
+            raise AssertionError(f"GroupNorm(use_kernel=True) disagrees at "
+                                 f"{name}")
+    stem = ConvGN(3, 64, kernel_size=7, strides=2, activation="relu")
+    with torch.no_grad():
+        stem.Conv_0.kernel.copy_(w.permute(3, 2, 0, 1))
+        stem.GroupNorm_0.gamma.copy_(gamma)
+        stem.GroupNorm_0.beta.copy_(beta)
+        stem.to(device)
+        ref = max_pool_same(stem(x.to(torch.bfloat16).permute(0, 3, 1, 2)),
+                            3, 2).permute(0, 2, 3, 1)
+    equal = bool(torch.equal(pooled, ref))
+    log("entry-b7", shape=list(pooled.shape), bitwise_equal_model_stem=equal)
+    if not equal:
+        raise AssertionError("fused_stem differs from the model's stem")
+    del mods, xs, outs, x, pooled, ref, stem
+    torch.cuda.empty_cache()
+    return launches
+
+
 def clustered_boxes(batch, n, gen, quantized=False):
     """Score-sorted candidates as the serving path builds them: clustered
     corner boxes, class offsets ``ids·4``, 20% invalid parked −1e4."""
@@ -334,7 +749,7 @@ def flagship_config(batch: int = 8, fused: bool = True) -> Config:
         model=dataclasses.replace(
             config.model, backbone="resnet_50_dense", fused_blocks=fused,
             fused_res2=fused, fused_res3_strips=10, fused_res4_strips=10),
-        data=dataclasses.replace(config.data, image_size=640,
+        data=dataclasses.replace(config.data, image_size=SIZE,
                                  batch_size=batch),
         nms=dataclasses.replace(config.nms, use_approx_top_k=True))
 
@@ -346,7 +761,7 @@ def check_flagship(device):
     names = [str(i) for i in range(80)]
     state = init_params(config, torch.Generator().manual_seed(0), 80)
     detectors = [Detector(c, state, names, device) for c in (config, low)]
-    images = torch.randn(8, 640, 640, 3,
+    images = torch.randn(8, SIZE, SIZE, 3,
                          generator=torch.Generator().manual_seed(3)
                          ).to(device)
 
@@ -397,7 +812,7 @@ def check_flagship(device):
         with torch.inference_mode():
             cand, shifted = b2.nms_candidates(
                 got["classifications"], got["regressions"], levels,
-                (640, 640), c)
+                (SIZE, SIZE), c)
             diff = int((b2.nms_keep_mask_batch(shifted, c.iou_threshold)
                         != b2._greedy_keep_mask(shifted, c.iou_threshold)
                         ).sum().item())
@@ -417,7 +832,7 @@ def train_config(batch: int = 8, fused: bool = True) -> Config:
     return config.replace(
         model=dataclasses.replace(config.model, backbone="resnet_50_dense",
                                   fused_train=fused),
-        data=dataclasses.replace(config.data, image_size=640,
+        data=dataclasses.replace(config.data, image_size=SIZE,
                                  batch_size=batch))
 
 
@@ -475,7 +890,7 @@ def check_training(device):
     levels = build_levels()
     state_dict = init_params(train_config(), torch.Generator().manual_seed(0),
                              80)
-    batch = synthetic_batch(8, 640, 100, device)
+    batch = synthetic_batch(8, SIZE, 100, device)
 
     def first_step(model, config, with_metrics=False):
         state = create_train_state(model, config, state_dict)
@@ -620,17 +1035,145 @@ def time_kernels(device):
     return timing
 
 
+def bound(flop, nbytes, peak):
+    """(ms, bound_by): the larger of ``flop`` at ``peak`` and ``nbytes`` at
+    the card's memory rate."""
+    t_op, t_by = flop / peak, nbytes / PEAK_BYTES
+    return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
+
+
+def int_mm_ms(x, kernel):
+    """``torch._int_mm`` on the quantized operands of a 1×1 stride-1 conv
+    (the integer-GEMM yardstick of B6), or None where this PyTorch build
+    refuses the shapes."""
+    f, c = kernel.shape[:2]
+    a = b6._quantize_plain(x, b6.quantize_activations(x)).reshape(-1, c)
+    w_q = b6.quantize_weights(kernel)[0].reshape(f, c)
+    try:
+        return cuda_time_ms(lambda: torch._int_mm(a, w_q.t()), 10)
+    except RuntimeError as err:
+        log("b6-library", error=str(err).splitlines()[0])
+        return None
+
+
+def time_new_kernels(device, int8_shapes):
+    """B4-B7 vs their plain versions (and a PyTorch call computing the same
+    function, where one exists) at their main paths' shapes, batch 8:
+    B4 at the P3/P4 head activations (library: ``F.group_norm`` without
+    the activation), B5 at res2 b0, B6 summed over the 59 convs of an
+    int8 forward (library: ``torch._int_mm`` over the 1×1 stride-1 ones),
+    B7 at the stem's output."""
+    gen = torch.Generator().manual_seed(11)
+    timing = {}
+    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, h, w, c, act in B4_SHAPES[:2]:
+        x = torch.randn(8, h, w, c, generator=gen).to(torch.bfloat16).to(
+            device)
+        gamma, beta = (p.to(device) for p in gn_affine(c, gen))
+        xc = x.permute(0, 3, 1, 2)
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        with torch.no_grad():
+            k_ms = cuda_time_ms(lambda: b4.fused_group_norm_act(
+                x, gamma, beta, 32, 1e-5, act), 20)
+            p_ms = cuda_time_ms(lambda: b4.fused_group_norm_act_plain(
+                x, gamma, beta, 32, 1e-5, act), 10)
+            l_ms = cuda_time_ms(lambda: torch.nn.functional.group_norm(
+                xc, 32, g16, b16, 1e-5), 20)
+        ms, by = bound(0, 2 * x.numel() * 2 + 2 * c * 4, PEAK_FP32)
+        log("b4-time", at=name, shape=[8, h, w, c], activation=act,
+            kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=ms,
+            bound_by=by)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", ms)):
+            t[key] += v
+    timing["b4"] = dict(t, bound_by="bytes")
+
+    x, params = proj_inputs(8, gen, device)
+    h, w, cin, c, f = RES2_B0
+    k_ms = cuda_time_ms(lambda: b1.fused_bottleneck_proj(x, *params), 10)
+    p_ms = cuda_time_ms(lambda: b1.fused_bottleneck_proj_plain(x, *params), 5)
+    weights = cin * f + 9 * f * f + f * c + cin * c
+    ms, by = bound(2 * 8 * h * w * weights,
+                   8 * h * w * (cin + c) * 2 + (weights + 4 * f + 4 * c) * 4,
+                   PEAK_BF16)
+    log("b5-time", shape=[8, h, w, cin], C=c, F=f, kernel_ms=k_ms,
+        plain_ms=p_ms, bound_ms=ms, bound_by=by)
+    timing["b5"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by,
+                        library_ms=None)
+    del x, params
+
+    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0)
+    lib = dict(library_ms=0.0, ms_library_scope=0.0, library_convs=0)
+    for key, count in sorted(int8_shapes.items()):
+        b, h, w, c, f, k, s = key
+        x, kernel = int8_case(key, gen, device)
+        k_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s), 10)
+        p_ms = cuda_time_ms(lambda: b6.int8_conv_plain(
+            x, kernel, s, torch.bfloat16), 2, warmup=1)
+        ho, wo = -(-h // s), -(-w // s)
+        ms, by = bound(2 * b * ho * wo * k * k * c * f,
+                       (b * h * w * c + b * ho * wo * f) * 2
+                       + k * k * c * f * 4, PEAK_INT8)
+        l_ms = int_mm_ms(x, kernel) if (k, s) == (1, 1) else None
+        log("b6-time", shape=[b, h, w, c], F=f, k=k, stride=s,
+            convs_per_forward=count, kernel_ms=k_ms, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=ms, bound_by=by)
+        t["ms"] += count * k_ms
+        t["plain_ms"] += count * p_ms
+        t["bound_ms"] += count * ms
+        t["t_op"] += count * (ms if by == "operations" else 0.0)
+        if l_ms is not None:
+            lib["library_ms"] += count * l_ms
+            lib["ms_library_scope"] += count * k_ms
+            lib["library_convs"] += count
+        del x, kernel
+    t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
+                     else "bytes")
+    if not lib["library_convs"]:
+        lib["library_ms"] = None
+    timing["b6"] = dict(t, **lib)
+
+    h, w, c = STEM
+    y = torch.randn(8, h, w, c, generator=gen).to(torch.bfloat16).to(device)
+    scale = (torch.rand(8, c, generator=gen) + 0.5).to(device)
+    shift = (0.3 * torch.randn(8, c, generator=gen)).to(device)
+    k_ms = cuda_time_ms(lambda: b7.gn_relu_maxpool(y, scale, shift), 20)
+    p_ms = cuda_time_ms(lambda: b7.gn_relu_maxpool_plain(y, scale, shift), 10)
+    ms, by = bound(0, y.numel() * 2 + y.numel() // 4 * 2 + 2 * 8 * c * 4,
+                   PEAK_FP32)
+    log("b7-time", shape=[8, h, w, c], kernel_ms=k_ms, plain_ms=p_ms,
+        bound_ms=ms, bound_by=by)
+    timing["b7"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by,
+                        library_ms=None)
+    torch.cuda.empty_cache()
+    return timing
+
+
+def serving_config(path: str, batch: int) -> Config:
+    """The serving configs timed: the bench config on its kernels, with
+    ``fused_proj`` too, with int8 convs, and unfused on the plain path."""
+    if path == "int8":
+        return int8_config(batch)
+    config = flagship_config(batch, fused=path != "plain")
+    return config.replace(model=dataclasses.replace(
+        config.model, fused_proj=path == "fused_proj"))
+
+
 def time_end_to_end(device):
-    for batch in (8, 128):
-        for path in ("kernels", "plain"):
-            config = flagship_config(batch, fused=path == "kernels")
-            r = benchmark(config, batch_size=batch,
-                          steps=10 if batch == 8 else 5, warmup=2,
-                          num_classes=80, device=device)
-            log("e2e-time", path=path, batch=batch,
-                images_per_sec=r["images_per_sec"],
-                p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
-            torch.cuda.empty_cache()
+    """Serving images/s and latency at batch 8 and 128; at 128 the
+    ``fused_proj`` A/B runs in turns (kernels, fused_proj, fused_proj,
+    kernels)."""
+    runs = [(8, p) for p in ("kernels", "int8", "plain")]
+    runs += [(128, p) for p in ("kernels", "fused_proj", "int8", "plain",
+                                "fused_proj", "kernels")]
+    for batch, path in runs:
+        r = benchmark(serving_config(path, batch), batch_size=batch,
+                      steps=10 if batch == 8 else 5, warmup=2,
+                      num_classes=80, device=device)
+        log("e2e-time", path=path, batch=batch,
+            images_per_sec=r["images_per_sec"],
+            p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
+        torch.cuda.empty_cache()
 
 
 def time_training(device):
@@ -658,17 +1201,18 @@ def time_training(device):
 
 
 def breakdown(device):
-    """Device time by kernel group, idle share and kernels per call of
-    both paths: serving through ``Detector`` at batch 8 and 128, training
-    through ``make_train_step`` (no metrics) at batch 8 and 32."""
+    """Device time by kernel group, idle share and kernels per call:
+    serving through ``Detector`` at batch 8 and 128 (kernel, int8 and
+    plain paths), training through ``make_train_step`` (no metrics) at
+    batch 8 and 32 (kernel and plain paths)."""
     levels = build_levels()
     for batch in (8, 128):
-        for path in ("kernels", "plain"):
-            config = flagship_config(batch, fused=path == "kernels")
+        for path in ("kernels", "int8", "plain"):
+            config = serving_config(path, batch)
             detector = Detector(config, init_params(
                 config, torch.Generator().manual_seed(0), 80),
                 [str(i) for i in range(80)], device)
-            images = torch.randn(batch, 640, 640, 3,
+            images = torch.randn(batch, SIZE, SIZE, 3,
                                  generator=torch.Generator().manual_seed(3)
                                  ).to(device)
             log("breakdown", slice="serving", path=path, batch=batch,
@@ -682,7 +1226,7 @@ def breakdown(device):
             box = [create_train_state(model, config, init_params(
                 config, torch.Generator().manual_seed(0), 80))]
             step = make_train_step(model, levels, config, with_metrics=False)
-            data = synthetic_batch(batch, 640, config.assign.max_boxes,
+            data = synthetic_batch(batch, SIZE, config.assign.max_boxes,
                                    device)
 
             def call():
@@ -696,7 +1240,7 @@ def breakdown(device):
 
 def build_kernels():
     """One nvcc per source, all started together."""
-    libs = (b1.LIB, b2.LIB, b3.LIB)
+    libs = (b1.LIB, b2.LIB, b3.LIB, b4.LIB, b1.PROJ_LIB, b6.LIB, b7.LIB)
 
     def build(lib):
         t = time.monotonic()
@@ -712,7 +1256,22 @@ def build_kernels():
         log("build", source=lib.source.name, seconds=sec, ptxas=lines)
 
 
-def main() -> int:
+def parse_phases(argv):
+    if not argv:
+        return PHASES
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(f"usage: chip_smoke.py [--phases "
+                         f"{','.join(PHASES)}]")
+    phases = tuple(argv[1].split(","))
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from "
+                         f"{PHASES}")
+    return phases
+
+
+def main(argv=()) -> int:
+    phases = parse_phases(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -729,36 +1288,63 @@ def main() -> int:
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         nvidia_smi=smi, capability=list(cap))
 
-    build_kernels()
-    b1_err = check_b1(device)
-    b2_err = check_b2(device)
-    b3_err = check_b3(device)
-    launches = check_flagship(device)
-    train_launches = check_training(device)
-    timing = time_kernels(device)
-    time_end_to_end(device)
-    time_training(device)
-    breakdown(device)
+    if "build" in phases:
+        build_kernels()
+    errs, launches, timing, int8_shapes = {}, {}, {}, {}
+    if "checks" in phases:
+        errs["b1"] = check_b1(device)
+        errs["b2"] = float(check_b2(device))
+        errs["b3"] = check_b3(device)
+        errs["b4"] = check_b4(device)
+        errs["b5"] = check_b5(device)
+        errs["b7"] = check_b7(device)
+    if "serving" in phases:
+        launches.update(check_flagship(device))
+    if "training" in phases:
+        launches["b3"] = check_training(device)["b3"]
+    if "int8" in phases:
+        int8_launches, int8_shapes = check_int8_serving(device)
+        launches["b6"] = int8_launches["b6"]
+        errs["b6"] = check_b6(device, int8_shapes)
+    if "proj" in phases:
+        launches["b5"] = check_fused_proj(device)["b5"]
+    if "entry" in phases:
+        launches.update(drive_entry_points(device))
+    if "timing" in phases:
+        timing = time_kernels(device)
+        if int8_shapes:
+            timing.update(time_new_kernels(device, int8_shapes))
+        time_end_to_end(device)
+        time_training(device)
+    if "breakdown" in phases:
+        breakdown(device)
+    log("done", seconds=time.monotonic() - t0, phases=list(phases))
+    if phases != PHASES:
+        return 0
 
     sources = {
         "b1": ("fused_bottleneck", "bottleneck.cu",
-               "retinanet_tpu/ops/pallas/bottleneck.py:372",
-               launches["b1"], b1_err),
+               "retinanet_tpu/ops/pallas/bottleneck.py:372"),
         "b2": ("nms_keep_mask_batch", "nms.cu",
-               "retinanet_tpu/ops/pallas/nms_kernel.py:162",
-               launches["b2"], float(b2_err)),
+               "retinanet_tpu/ops/pallas/nms_kernel.py:162"),
         "b3": ("fused_bottleneck_bwd", "bottleneck_bwd.cu",
-               "retinanet_tpu/ops/pallas/bottleneck_bwd.py:326",
-               train_launches["b3"], b3_err),
+               "retinanet_tpu/ops/pallas/bottleneck_bwd.py:326"),
+        "b4": ("fused_group_norm_act", "groupnorm.cu",
+               "retinanet_tpu/ops/pallas/groupnorm.py:177"),
+        "b5": ("fused_bottleneck_proj", "bottleneck_proj.cu",
+               "retinanet_tpu/ops/pallas/bottleneck.py:328"),
+        "b6": ("int8_conv", "int8_conv.cu",
+               "retinanet_tpu/ops/pallas/int8_conv.py:76"),
+        "b7": ("gn_relu_maxpool", "stem.cu",
+               "retinanet_tpu/ops/pallas/stem.py:94"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"retinanet_tpu_torch/ops/csrc/{src}",
-         "replaces": replaces, "launches": count, "max_abs_err": err,
-         **timing[key], "library_ms": None}
-        for key, (name, src, replaces, count, err) in sources.items()]}),
-        flush=True)
-    log("done", seconds=time.monotonic() - t0)
+         "replaces": replaces, "launches": launches[key],
+         "max_abs_err": errs[key],
+         **{"library_ms": None, **timing[key]}}
+        for key, (name, src, replaces) in sources.items()]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -767,4 +1353,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -76,19 +76,40 @@ def group_norm(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
     return out
 
 
+# Smallest h·w·c that takes kernel B4 under ``use_kernel`` (the JAX
+# module's gate, ``layers.py:124``).
+GN_KERNEL_MIN_ELEMENTS = 1 << 18
+
+
 class GroupNorm(nn.Module):
-    """GroupNorm with γ/β in float32 and an optional fused activation."""
+    """GroupNorm with γ/β in float32 and an optional fused activation.
+
+    ``use_kernel`` is the counterpart of the JAX module's ``use_pallas``
+    (off by default; no config sets it): a CUDA tensor with h·w·c ≥ 2¹⁸
+    goes through kernel B4 (``ops/groupnorm.fused_group_norm_act``), whose
+    affine runs in fp32; anything else takes ``group_norm``, as the JAX
+    module takes its jnp path off the TPU."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
-                 activation: Optional[str] = None):
+                 activation: Optional[str] = None, use_kernel: bool = False):
         super().__init__()
         self.groups = groups
         self.eps = eps
         self.activation = activation
+        self.use_kernel = use_kernel
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: Tensor) -> Tensor:
+        n, c, h, w = x.shape
+        if (self.use_kernel and x.is_cuda
+                and h * w * c >= GN_KERNEL_MIN_ELEMENTS):
+            # Imported here: the op module imports this one.
+            from retinanet_tpu_torch.ops.groupnorm import fused_group_norm_act
+            out = fused_group_norm_act(
+                x.permute(0, 2, 3, 1).contiguous(), self.gamma, self.beta,
+                resolve_groups(c, self.groups), self.eps, self.activation)
+            return out.permute(0, 3, 1, 2)
         return group_norm(x, self.gamma, self.beta, self.groups, self.eps,
                           self.activation)
 
@@ -104,14 +125,20 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class Conv(nn.Module):
     """NHWC-semantics conv with TF "SAME" padding, kernel stored OIHW in
     float32 and cast to the input dtype at use; the optional bias is added
-    after the conv output is rounded, as in the JAX ``Conv``."""
+    after the conv output is rounded, as in the JAX ``Conv``.
+
+    ``quantize`` runs the conv as ``ops/int8_conv.int8_conv`` (int8
+    serving: kernel B6 on the card) with the output in x's dtype, then the
+    bias in that dtype; the parameters are the float model's."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  strides: int = 1, use_bias: bool = False,
-                 kernel_init: str = "he_normal", bias_init: float = 0.0):
+                 kernel_init: str = "he_normal", bias_init: float = 0.0,
+                 quantize: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.strides = strides
+        self.quantize = quantize
         self.kernel_init = kernel_init
         self.bias_init = bias_init
         self.kernel = nn.Parameter(
@@ -126,7 +153,12 @@ class Conv(nn.Module):
         k, s = self.kernel_size, self.strides
         top, bottom = same_padding(x.shape[2], k, s)
         left, right = same_padding(x.shape[3], k, s)
-        if (top, left) == (bottom, right):
+        if self.quantize:
+            # Imported here: the op module imports this one.
+            from retinanet_tpu_torch.ops import int8_conv as b6
+            y = b6.int8_conv(x.permute(0, 2, 3, 1).contiguous(), self.kernel,
+                             s, x.dtype).permute(0, 3, 1, 2)
+        elif (top, left) == (bottom, right):
             y = F.conv2d(x, self.weight_as(x), stride=s, padding=(top, left))
         else:
             y = F.conv2d(F.pad(x, (left, right, top, bottom)),
@@ -142,10 +174,10 @@ class ConvGN(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  strides: int = 1, gn_groups: int = 32,
                  activation: Optional[str] = None,
-                 kernel_init: str = "he_normal"):
+                 kernel_init: str = "he_normal", quantize: bool = False):
         super().__init__()
         self.Conv_0 = Conv(in_channels, features, kernel_size, strides,
-                           kernel_init=kernel_init)
+                           kernel_init=kernel_init, quantize=quantize)
         self.GroupNorm_0 = GroupNorm(features, gn_groups,
                                      activation=activation)
 

@@ -10,7 +10,10 @@ with ``fused_train`` every one of them runs B1 forward and the hand-written
 backward B3 (``ops/bottleneck_bwd.py``) when training.  The JAX package
 keeps res5 (width 20 at 640 px) on autodiff because of a Mosaic tiling
 limit (``w % 8``); the CUDA kernel has none, so all 12 identity blocks take
-B3.  Everything else runs the plain layers.
+B3.  With ``fused_proj`` the stride-1 projection block (res2 b0) serves
+through kernel B5.  ``quantize`` runs every block conv through the int8
+convolution (kernel B6) and keeps every block off B1, B3 and B5; the stem
+stays float.  Everything else runs the plain layers.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
-from retinanet_tpu_torch.ops.bottleneck import fused_bottleneck
+from retinanet_tpu_torch.ops.bottleneck import (fused_bottleneck,
+                                                fused_bottleneck_proj)
 from retinanet_tpu_torch.ops.bottleneck_bwd import fused_bottleneck_train
 
 logger = logging.getLogger(__name__)
@@ -34,37 +38,48 @@ class ResNetBottleneck(nn.Module):
 
     def __init__(self, in_channels: int, filters: int,
                  project: Union[bool, str], fused: bool = False,
-                 fused_train: bool = False):
+                 fused_train: bool = False, fused_proj: bool = False,
+                 quantize: bool = False):
         super().__init__()
         self.filters = filters
         self.project = project
         self.fused = fused
         self.fused_train = fused_train
+        self.fused_proj = fused_proj
+        self.quantize = quantize
         strides = 2 if project == "down" else 1
         convs = []
         if project:
             convs.append(ConvGN(in_channels, filters * 4, kernel_size=1,
-                                strides=strides))
+                                strides=strides, quantize=quantize))
         convs += [ConvGN(in_channels, filters, kernel_size=1,
-                         activation="relu"),
+                         activation="relu", quantize=quantize),
                   ConvGN(filters, filters, kernel_size=3, strides=strides,
-                         activation="relu"),
-                  ConvGN(filters, filters * 4, kernel_size=1)]
+                         activation="relu", quantize=quantize),
+                  ConvGN(filters, filters * 4, kernel_size=1,
+                         quantize=quantize)]
         for i, conv in enumerate(convs):
             self.add_module(f"ConvGN_{i}", conv)
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:
         convs = list(self.children())
         conv1, conv2, conv3 = convs[-3:]
-        fusable = (not self.project and x.dtype == torch.bfloat16
-                   and x.shape[1] == self.filters * 4)
-        if fusable and (self.fused and not training
-                        or self.fused_train and training):
+        bf16 = x.dtype == torch.bfloat16 and not self.quantize
+        if self.project:  # B5: the stride-1 projection block, serving only
+            fused = (bf16 and self.project is True and self.fused_proj
+                     and not training)
+            block = fused_bottleneck_proj
+            order = convs[1:] + convs[:1]  # the projection's params last
+        else:
+            fused = (bf16 and x.shape[1] == self.filters * 4
+                     and (self.fused_train if training else self.fused))
+            block = fused_bottleneck_train if training else fused_bottleneck
+            order = convs
+        if fused:
             params = []
-            for conv in (conv1, conv2, conv3):
+            for conv in order:
                 params += [conv.Conv_0.kernel, conv.GroupNorm_0.gamma,
                            conv.GroupNorm_0.beta]
-            block = fused_bottleneck_train if training else fused_bottleneck
             out = block(x.permute(0, 2, 3, 1), *params)
             return out.permute(0, 3, 1, 2)
         identity = convs[0](x) if self.project else x
@@ -72,14 +87,16 @@ class ResNetBottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """Dense ResNet-50 returning {'C1'..'C5'}: 7×7/2 stem ConvGN + relu,
-    3×3/2 SAME max pool, stages (64,3) (128,4) (256,6) (512,3)."""
+    """Dense ResNet-50 returning {'C1'..'C5'}: 7×7/2 stem ConvGN + relu
+    (never quantized), 3×3/2 SAME max pool, stages (64,3) (128,4) (256,6)
+    (512,3)."""
 
     STAGES = ((64, 3, False), (128, 4, True), (256, 6, True), (512, 3, True))
 
     def __init__(self, fused_blocks: bool = False, fused_res2: bool = False,
                  fused_res2_strips: int = 20, fused_res3_strips: int = 0,
-                 fused_res4_strips: int = 0, fused_train: bool = False):
+                 fused_res4_strips: int = 0, fused_train: bool = False,
+                 fused_proj: bool = False, quantize: bool = False):
         super().__init__()
         if fused_blocks and (fused_res2_strips or fused_res3_strips
                              or fused_res4_strips):
@@ -94,7 +111,8 @@ class ResNet50(nn.Module):
                 block = ResNetBottleneck(
                     in_ch, filters, project,
                     fused=fused_blocks and (filters >= 128 or fused_res2),
-                    fused_train=fused_train)
+                    fused_train=fused_train, fused_proj=fused_proj,
+                    quantize=quantize)
                 self.add_module(f"ResNetBottleneck_{idx}", block)
                 in_ch, idx = filters * 4, idx + 1
 

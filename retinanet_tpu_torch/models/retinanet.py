@@ -6,7 +6,8 @@ Images come in NHWC (the JAX layout) and are viewed as NCHW in
 [B,H,W,A,K]}, 'regressions': {P3..P7: [B,H,W,A,4]}}`` in the compute
 dtype (float32 logits when training).  ``l2_regularization`` is the
 TF-parity L2 loss over the conv kernels.  Only the dense ResNet-50 flagship
-is built so far.
+is built so far; ``quantize="int8"`` serves it with int8 backbone and FPN
+convs (heads and stem float) on the float model's parameters.
 """
 
 from __future__ import annotations
@@ -29,17 +30,15 @@ BACKBONES = ("resnet_50", "resnet_50_dense", "densenet_121", "densenet_169",
 def build_backbone(name: str, quantize: bool = False,
                    fused_blocks: bool = False, fused_res2: bool = False,
                    fused_res2_strips: int = 20, fused_res3_strips: int = 0,
-                   fused_res4_strips: int = 0,
+                   fused_res4_strips: int = 0, fused_proj: bool = False,
                    fused_train: bool = False) -> nn.Module:
-    if quantize:
-        raise NotImplementedError(
-            'quantize="int8" is not ported yet (ROADMAP A10, int8 serving)')
     if name == "resnet_50_dense":
         return ResNet50(fused_blocks=fused_blocks, fused_res2=fused_res2,
                         fused_res2_strips=fused_res2_strips,
                         fused_res3_strips=fused_res3_strips,
                         fused_res4_strips=fused_res4_strips,
-                        fused_train=fused_train)
+                        fused_train=fused_train, fused_proj=fused_proj,
+                        quantize=quantize)
     if name in BACKBONES:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ROADMAP A8, other "
@@ -57,7 +56,7 @@ class RetinaNet(nn.Module):
                  quantize: bool = False, fused_blocks: bool = False,
                  fused_res2: bool = False, fused_res2_strips: int = 20,
                  fused_res3_strips: int = 0, fused_res4_strips: int = 0,
-                 fused_train: bool = False,
+                 fused_proj: bool = False, fused_train: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.backbone = backbone
@@ -67,9 +66,11 @@ class RetinaNet(nn.Module):
             backbone, quantize=quantize, fused_blocks=fused_blocks,
             fused_res2=fused_res2, fused_res2_strips=fused_res2_strips,
             fused_res3_strips=fused_res3_strips,
-            fused_res4_strips=fused_res4_strips, fused_train=fused_train)
+            fused_res4_strips=fused_res4_strips, fused_proj=fused_proj,
+            fused_train=fused_train)
         self.fpn = FPN({"C3": 512, "C4": 1024, "C5": 2048}, fpn_channels,
-                       activation)
+                       activation, quantize)
+        # The heads stay float under int8 serving (retinanet.py:150-165).
         self.classification_subnet = ClassificationSubnet(
             num_anchors, num_classes, fpn_channels, head_depth, activation,
             prior_prob)
@@ -94,6 +95,7 @@ class RetinaNet(nn.Module):
             fused_res2_strips=cfg.fused_res2_strips,
             fused_res3_strips=cfg.fused_res3_strips,
             fused_res4_strips=cfg.fused_res4_strips,
+            fused_proj=cfg.fused_proj,
             fused_train=cfg.fused_train,
             dtype=getattr(torch, cfg.compute_dtype))
 

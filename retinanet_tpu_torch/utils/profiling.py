@@ -1,8 +1,9 @@
 """Where the device time goes: a ``torch.profiler`` breakdown of one
 call on the card (``device_breakdown``), by kernel group.
 
-``chip_smoke.py`` runs it on the flagship's serving batch and training
-step, each on its kernel path and its plain path.  Needs a CUDA device.
+``chip_smoke.py`` runs it on the flagship's serving batch (kernel, int8
+and plain paths) and training step (kernel and plain paths).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("B3 bottleneck_bwd.cu", ("b3_fused_bottleneck_bwd",)),
     ("B1 bottleneck.cu", ("b1_fused_bottleneck",)),
     ("B2 nms.cu", ("nms_mask", "nms_scan")),
+    ("B4 groupnorm.cu", ("b4_group_norm",)),
+    ("B5 bottleneck_proj.cu", ("b5_fused_bottleneck_proj",)),
+    ("B6 int8_conv.cu", ("b6_int8_conv",)),
+    ("B7 stem.cu", ("b7_gn_relu_maxpool",)),
     ("convolution (cuDNN)", ("cudnn", "xmma", "conv", "dgrad", "wgrad",
                              "implicit_gemm", "fprop", "nhwc", "nchw")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_", "ampere")),

@@ -41,6 +41,25 @@ assert keep.dtype == torch.bool and keep.shape == (2, 30)
 assert torch.equal(keep, nms._greedy_keep_mask(boxes, 0.5))
 assert bottleneck.fused_bottleneck.launches == 0
 assert nms.nms_keep_mask_batch.launches == 0
+
+# The kernels of int8 and fused_proj serving and the opt-in B4/B7 entry
+# points run their plain versions on CPU tensors and launch nothing.
+from retinanet_tpu_torch.ops import groupnorm, int8_conv, stem
+xc = torch.randn(1, 4, 5, 64, generator=g)
+assert int8_conv.int8_conv(xc, torch.randn(64, 64, 3, 3, generator=g),
+                           2).shape == (1, 2, 3, 64)
+p = bottleneck.fused_bottleneck_proj(x, *ks[:6], torch.randn(
+    256, 16, 1, 1, generator=g), torch.ones(256), torch.zeros(256),
+    torch.randn(256, 64, 1, 1, generator=g), torch.ones(256), torch.zeros(256))
+assert p.shape == (1, 4, 5, 256)
+assert groupnorm.fused_group_norm_act(xc, torch.ones(64), torch.zeros(64),
+                                      32, 1e-5, "elu").shape == xc.shape
+assert stem.gn_relu_maxpool(x, torch.ones(1, 64),
+                            torch.zeros(1, 64)).shape == (1, 2, 3, 64)
+assert (int8_conv.int8_conv.launches,
+        bottleneck.fused_bottleneck_proj.launches,
+        groupnorm.fused_group_norm_act.launches,
+        stem.gn_relu_maxpool.launches) == (0, 0, 0, 0)
 assert sys.modules["jax"] is None and sys.modules["flax"] is None
 assert sys.modules["retinanet_tpu"] is None
 
