@@ -69,12 +69,14 @@ line, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -94,7 +96,8 @@ from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
 from retinanet_tpu_torch.train import (benchmark_train, create_train_state,
                                        make_train_step, synthetic_batch)
-from retinanet_tpu_torch.utils.profiling import device_breakdown
+from retinanet_tpu_torch.utils.profiling import (device_breakdown,
+                                                 kernel_launches)
 
 SIZE = 640  # the canvas side of every phase
 # (H, W, C, F) of the 12 identity blocks at 640 px, with their counts.
@@ -184,6 +187,14 @@ RES2_B0 = (160, 160, 64, 256, 64)
 STEM = (320, 320, 64)
 PHASES = ("build", "checks", "int8", "proj", "entry", "serving", "training",
           "timing", "breakdown")
+# Run only when asked for (``--phases parent``): the parent commit's B3 and
+# B6 sources, placed in PARENT_DIR, against this tree's on the card.
+PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
+# B3's launches by group, first match wins (kernel names in the profile).
+B3_GROUPS = (("recompute", ("::conv_gemm<", "::gn_finalize(")),
+             ("dgrad", ("dgrad_gemm",)), ("wgrad", ("wgrad_gemm",)),
+             ("slice sums", ("reduce_slices", "reduce_images")),
+             ("output mask + GN", ("out_mask_bwd", "gn_bwd_", "relu_planes")))
 
 
 def log(phase: str, **fields) -> None:
@@ -546,12 +557,31 @@ def check_int8_serving(device):
     if not finite or tuple(out.boxes.shape) != (8, 1000, 4):
         raise AssertionError("bad int8 detections")
 
+    # Serving again: the weights stay quantized (no prepare_weights build),
+    # and each conv launches B6's three kernels and nothing else of B6.
+    builds = b6.prepare_weights.builds
+    by_name = kernel_launches(lambda: detector(images), calls=1)
+    b6_kernels = {}
+    for name, (n, _) in by_name.items():
+        if "b6_int8_conv" in name:
+            short = name.split("b6_int8_conv::")[-1].split("<")[0]
+            b6_kernels[short] = b6_kernels.get(short, 0) + n
+    per_b6 = sum(b6_kernels.values())
+    log("int8-kernels",
+        kernels_per_forward=sum(n for n, _ in by_name.values()),
+        b6_kernels_per_forward=b6_kernels, b6_kernels_per_conv=per_b6 / 59,
+        weight_builds_while_serving=b6.prepare_weights.builds - builds)
+    if b6.prepare_weights.builds != builds or per_b6 > 3 * 59:
+        raise AssertionError(f"int8 serving quantized weights "
+                             f"({b6.prepare_weights.builds - builds} builds) "
+                             f"or launched {per_b6} B6 kernels for 59 convs")
+
     real = b6.int8_conv
     with torch.inference_mode():
         got = detector.model(images)
-        b6.int8_conv = (lambda x, kernel, strides=1, out_dtype=None:
-                        b6.int8_conv_plain(x, kernel, strides,
-                                           out_dtype or x.dtype))
+        b6.int8_conv = (lambda x, kernel, strides=1, out_dtype=None,
+                        weights=None: b6.int8_conv_plain(
+                            x, kernel, strides, out_dtype or x.dtype))
         try:
             want = detector.model(images)
         finally:
@@ -571,24 +601,35 @@ def int8_case(key, gen, device):
 
 def check_b6(device, shapes) -> float:
     """B6 vs its plain version at every distinct int8 conv shape of the
-    640-px flagship at batch 8: bitwise equal and repeatable."""
+    640-px flagship at batch 8, a 1×1 conv through both A producers
+    (quantizing as it loads, and after the quantize pass): bitwise equal
+    and repeatable."""
     gen = torch.Generator().manual_seed(9)
     for key, count in sorted(shapes.items()):
         x, kernel = int8_case(key, gen, device)
         s = key[-1]
         ref = b6.int8_conv_plain(x, kernel, s, torch.bfloat16)
         out = b6.int8_conv(x, kernel, s)
-        again = b6.int8_conv(x, kernel, s)
+        wts = b6.prepare_weights(kernel)
+        again = b6.int8_conv(x, kernel, s, weights=wts)
+        # The other A producer: 1×1 convs also through the quantize pass.
+        other = torch.empty_like(out)
+        b6.launch(x, torch.empty(x.shape, dtype=torch.int8, device=device),
+                  b6.scratch(device), wts, other, s,
+                  fuse=not b6.fuses_quantize(wts, x))
         torch.cuda.synchronize()
-        equal = bool(torch.equal(out, ref))
+        equal = bool(torch.equal(out, ref)) and bool(torch.equal(other, ref))
         log("b6-check", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
             convs_per_forward=count, out=list(out.shape),
+            tile_n=b6.tile_n(key[4], out.shape[0] * out.shape[1]
+                             * out.shape[2], key[5] ** 2 * key[3]),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
-            bitwise_equal=equal, bitwise_repeat=bool(torch.equal(out, again)))
+            bitwise_equal=equal,
+            bitwise_repeat_prepared=bool(torch.equal(out, again)))
         if not equal or not torch.equal(out, again):
             raise AssertionError(f"B6 differs from its plain version at "
                                  f"{key}")
-        del x, kernel, ref, out, again
+        del x, kernel, ref, out, again, other
     # The JAX entry point, with bias and relu, at a head conv's shape.
     x, kernel = int8_case((8, 80, 80, 256, 256, 3, 1), gen, device)
     w = kernel.permute(2, 3, 1, 0)
@@ -986,20 +1027,36 @@ def nms_bound(batch, n):
     return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
 
 
+def b3_groups(call):
+    """B3's device ms and launches per call by launch group (B3_GROUPS)."""
+    split = {}
+    for name, (n, ms) in kernel_launches(call).items():
+        if "b3_fused_bottleneck_bwd" not in name:
+            continue
+        group = next((g for g, keys in B3_GROUPS
+                      if any(k in name for k in keys)), "other")
+        total = split.get(group, (0.0, 0.0))
+        split[group] = (total[0] + n, total[1] + ms)
+    return split
+
+
 def time_kernels(device):
     """Each kernel vs its plain version at the slices' shapes (batch 8),
     with its bound; B1 and B3 summed over the 12 identity blocks."""
     gen = torch.Generator().manual_seed(4)
     timing = {"b1": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0),
               "b3": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0)}
+    groups = {}
     for name, h, w, c, f, count in STAGES:
         x, params = block_inputs(8, h, w, c, f, gen, device)
         dout = torch.randn(8, h, w, c, generator=gen).to(
             torch.bfloat16).to(device)
+        wts = b3.prepare_weights(params[0], params[3], params[6])
         for key, passes, kernel, plain in (
                 ("b1", 1, lambda: b1.fused_bottleneck(x, *params),
                  lambda: b1.fused_bottleneck_plain(x, *params)),
-                ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params),
+                ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params,
+                                                          weights=wts),
                  lambda: b3.fused_bottleneck_bwd_plain(x, dout, *params))):
             k_ms = cuda_time_ms(kernel, 10)
             p_ms = cuda_time_ms(plain, 5)
@@ -1012,10 +1069,32 @@ def time_kernels(device):
             t["plain_ms"] += count * p_ms
             t["bound_ms"] += count * bound
             t["t_op"] += count * (bound if by == "operations" else 0.0)
-        del x, params, dout
+        split = b3_groups(lambda: b3.fused_bottleneck_bwd(
+            x, dout, *params, weights=wts))
+        log("b3-split", stage=name, batch=8, device_ms=split)
+        for g, (n, ms) in split.items():
+            total = groups.get(g, (0.0, 0.0))
+            groups[g] = (total[0] + count * n, total[1] + count * ms)
+        del x, params, dout, wts
+    log("b3-split-total", batch=8, blocks=12,
+        launches_and_ms={g: list(v) for g, v in groups.items()})
     for t in timing.values():
         t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
                          else "bytes")
+    # B3 at the training bench's batch 32, res2's shape (two blocks a step).
+    name, h, w, c, f, count = STAGES[0]
+    x, params = block_inputs(32, h, w, c, f, gen, device)
+    dout = torch.randn(32, h, w, c, generator=gen).to(torch.bfloat16).to(
+        device)
+    wts = b3.prepare_weights(params[0], params[3], params[6])
+    def call():
+        b3.fused_bottleneck_bwd(x, dout, *params, weights=wts)
+
+    k_ms = cuda_time_ms(call, 5)
+    bound, by = block_bound(32, h, w, c, f, 3)
+    log("b3-time", stage=name, batch=32, kernel_ms=k_ms, bound_ms=bound,
+        bound_by=by, blocks_per_step=count, device_ms=b3_groups(call))
+    del x, params, dout, wts
     for shape in ((8, 1000), (1, 1000)):
         boxes = clustered_boxes(*shape, gen).to(device)
         single = shape[0] == 1
@@ -1042,13 +1121,13 @@ def bound(flop, nbytes, peak):
     return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
 
 
-def int_mm_ms(x, kernel):
-    """``torch._int_mm`` on the quantized operands of a 1×1 stride-1 conv
-    (the integer-GEMM yardstick of B6), or None where this PyTorch build
-    refuses the shapes."""
-    f, c = kernel.shape[:2]
-    a = b6._quantize_plain(x, b6.quantize_activations(x)).reshape(-1, c)
-    w_q = b6.quantize_weights(kernel)[0].reshape(f, c)
+def int_mm_ms(x_q, weights):
+    """``torch._int_mm`` on a 1×1 stride-1 conv's quantized operands, the
+    ones B6's GEMM reads (the integer-GEMM yardstick of B6), or None where
+    this PyTorch build refuses the shapes."""
+    f, c = weights.shape[:2]
+    a = x_q.reshape(-1, c)
+    w_q = weights.w_q.view(f, c)
     try:
         return cuda_time_ms(lambda: torch._int_mm(a, w_q.t()), 10)
     except RuntimeError as err:
@@ -1056,13 +1135,98 @@ def int_mm_ms(x, kernel):
         return None
 
 
+def time_b6(device, int8_shapes, gen):
+    """B6 at every int8 conv shape of the flagship at batch 8, three ways:
+    the whole conv through the wrapper with prepared weights (``ms``), its
+    launches alone on preallocated buffers (``launches_ms``), and the GEMM
+    launch alone (``gemm_ms``); for the 1×1 convs, whose GEMM quantizes x
+    as it loads it, the same without that fusion (``*_unfused``), and
+    ``torch._int_mm`` beside the unfused GEMM on the same quantized
+    operands for the 1×1 stride-1 convs; the GEMM at each output tile; the
+    plain version; kernels per conv from a profile.  Summed over the 59
+    convs."""
+    t = dict(ms=0.0, launches_ms=0.0, gemm_ms=0.0, plain_ms=0.0,
+             bound_ms=0.0, t_op=0.0)
+    one = dict(convs_1x1=0, launches_ms_fused_1x1=0.0,
+               launches_ms_unfused_1x1=0.0, gemm_ms_fused_1x1=0.0,
+               gemm_ms_unfused_1x1=0.0)
+    lib = dict(library_ms=0.0, gemm_ms_library_scope=0.0, library_convs=0)
+    per_conv = set()
+    for key, count in sorted(int8_shapes.items()):
+        b, h, w, c, f, k, s = key
+        x, kernel = int8_case(key, gen, device)
+        wts = b6.prepare_weights(kernel)
+        ho, wo = -(-h // s), -(-w // s)
+        x_q = torch.empty(x.shape, dtype=torch.int8, device=device)
+        out = torch.empty(b, ho, wo, f, dtype=torch.bfloat16, device=device)
+        work = b6.scratch(device)
+        fused = b6.fuses_quantize(wts, x)
+
+        def run(which=b6.AMAX | b6.QUANTIZE | b6.GEMM, **kw):
+            return lambda: b6.launch(x, x_q, work, wts, out, s, which=which,
+                                     **kw)
+
+        run(fuse=False)()  # x_q and s_x for the GEMM-alone runs
+        k_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s, weights=wts),
+                            10)
+        l_ms = cuda_time_ms(run(), 10)
+        tiles = {bn: cuda_time_ms(run(b6.GEMM, bn=bn), 10)
+                 for bn in (64, 128, 256) if f % bn == 0}
+        g_ms = tiles[b6.tile_n(f, b * ho * wo, k * k * c)]
+        unfused = {}
+        if fused:
+            unfused = dict(launches_ms_unfused=cuda_time_ms(
+                run(fuse=False), 10), gemm_ms_unfused=cuda_time_ms(
+                run(b6.GEMM, fuse=False), 10))
+            one["convs_1x1"] += count
+            one["launches_ms_fused_1x1"] += count * l_ms
+            one["launches_ms_unfused_1x1"] += (
+                count * unfused["launches_ms_unfused"])
+            one["gemm_ms_fused_1x1"] += count * g_ms
+            one["gemm_ms_unfused_1x1"] += count * unfused["gemm_ms_unfused"]
+        p_ms = cuda_time_ms(lambda: b6.int8_conv_plain(
+            x, kernel, s, torch.bfloat16), 2, warmup=1)
+        n_kernels = sum(n for n, _ in kernel_launches(
+            lambda: b6.int8_conv(x, kernel, s, weights=wts), 1).values())
+        per_conv.add(n_kernels)
+        ms, by = bound(2 * b * ho * wo * k * k * c * f,
+                       (b * h * w * c + b * ho * wo * f) * 2
+                       + k * k * c * f * 4, PEAK_INT8)
+        i_ms = int_mm_ms(x_q, wts) if (k, s) == (1, 1) else None
+        log("b6-time", shape=[b, h, w, c], F=f, k=k, stride=s,
+            tile_n=b6.tile_n(f, b * ho * wo, k * k * c),
+            fuses_quantize=fused, convs_per_forward=count, conv_ms=k_ms,
+            launches_ms=l_ms, gemm_ms=g_ms, **unfused,
+            gemm_ms_by_tile=tiles, int_mm_ms=i_ms, plain_ms=p_ms,
+            bound_ms=ms, bound_by=by, kernels_per_conv=n_kernels)
+        for name, v in (("ms", k_ms), ("launches_ms", l_ms),
+                        ("gemm_ms", g_ms), ("plain_ms", p_ms),
+                        ("bound_ms", ms)):
+            t[name] += count * v
+        t["t_op"] += count * (ms if by == "operations" else 0.0)
+        if i_ms is not None:
+            lib["library_ms"] += count * i_ms
+            lib["gemm_ms_library_scope"] += (
+                count * unfused["gemm_ms_unfused"])
+            lib["library_convs"] += count
+        del x, kernel, wts, x_q, out
+    t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
+                     else "bytes")
+    if not lib["library_convs"]:
+        lib["library_ms"] = None
+    log("b6-time-total", **t, **lib, **one,
+        kernels_per_conv=sorted(per_conv))
+    if max(per_conv) > 3:
+        raise AssertionError(f"an int8 conv launched {max(per_conv)} kernels")
+    return dict(t, **lib)
+
+
 def time_new_kernels(device, int8_shapes):
     """B4-B7 vs their plain versions (and a PyTorch call computing the same
     function, where one exists) at their main paths' shapes, batch 8:
     B4 at the P3/P4 head activations (library: ``F.group_norm`` without
     the activation), B5 at res2 b0, B6 summed over the 59 convs of an
-    int8 forward (library: ``torch._int_mm`` over the 1×1 stride-1 ones),
-    B7 at the stem's output."""
+    int8 forward (``time_b6``), B7 at the stem's output."""
     gen = torch.Generator().manual_seed(11)
     timing = {}
     t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -1102,36 +1266,7 @@ def time_new_kernels(device, int8_shapes):
                         library_ms=None)
     del x, params
 
-    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0)
-    lib = dict(library_ms=0.0, ms_library_scope=0.0, library_convs=0)
-    for key, count in sorted(int8_shapes.items()):
-        b, h, w, c, f, k, s = key
-        x, kernel = int8_case(key, gen, device)
-        k_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s), 10)
-        p_ms = cuda_time_ms(lambda: b6.int8_conv_plain(
-            x, kernel, s, torch.bfloat16), 2, warmup=1)
-        ho, wo = -(-h // s), -(-w // s)
-        ms, by = bound(2 * b * ho * wo * k * k * c * f,
-                       (b * h * w * c + b * ho * wo * f) * 2
-                       + k * k * c * f * 4, PEAK_INT8)
-        l_ms = int_mm_ms(x, kernel) if (k, s) == (1, 1) else None
-        log("b6-time", shape=[b, h, w, c], F=f, k=k, stride=s,
-            convs_per_forward=count, kernel_ms=k_ms, plain_ms=p_ms,
-            library_ms=l_ms, bound_ms=ms, bound_by=by)
-        t["ms"] += count * k_ms
-        t["plain_ms"] += count * p_ms
-        t["bound_ms"] += count * ms
-        t["t_op"] += count * (ms if by == "operations" else 0.0)
-        if l_ms is not None:
-            lib["library_ms"] += count * l_ms
-            lib["ms_library_scope"] += count * k_ms
-            lib["library_convs"] += count
-        del x, kernel
-    t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
-                     else "bytes")
-    if not lib["library_convs"]:
-        lib["library_ms"] = None
-    timing["b6"] = dict(t, **lib)
+    timing["b6"] = time_b6(device, int8_shapes, gen)
 
     h, w, c = STEM
     y = torch.randn(8, h, w, c, generator=gen).to(torch.bfloat16).to(device)
@@ -1238,6 +1373,77 @@ def breakdown(device):
             torch.cuda.empty_cache()
 
 
+def parent_module(name: str):
+    """The parent commit's ``ops/<name>.py`` from PARENT_DIR, its kernel
+    library pointed at the parent's ``<name>.cu`` there (which includes
+    the parent's headers beside it)."""
+    spec = importlib.util.spec_from_file_location(f"parent_{name}",
+                                                  PARENT_DIR / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.LIB.source = PARENT_DIR / f"{name}.cu"
+    return module
+
+
+def check_parent(device, int8_shapes):
+    """This tree's B3 and B6 against the parent commit's, built from
+    PARENT_DIR: B3's recomputed forward (y1..y3 and the GN statistics,
+    ``return_forward=True``) at the four stage shapes, batch 8, bitwise;
+    B6 at every int8 conv shape bitwise, once end to end (each with its own
+    wrapper) and once with the parent's kernels given this tree's s_x.
+    Also logs whether PyTorch's CUDA division by a Python scalar equals
+    the true quotient (the parent's s_x divided so)."""
+    old3, old6 = parent_module("bottleneck_bwd"), parent_module("int8_conv")
+    gen = torch.Generator().manual_seed(12)
+    for name, h, w, c, f, _ in STAGES:
+        x, params = block_inputs(8, h, w, c, f, gen, device)
+        dout = torch.randn(8, h, w, c, generator=gen).to(
+            torch.bfloat16).to(device)
+        new = b3.fused_bottleneck_bwd(x, dout, *params, return_forward=True)
+        old = old3.fused_bottleneck_bwd(x, dout, *params,
+                                        return_forward=True)
+        torch.cuda.synchronize()
+        ys = [bool(torch.equal(a, b)) for a, b in zip(new[1][:3], old[1][:3])]
+        stats = all(torch.equal(a, b) for pa, pb in zip(new[1][3], old[1][3])
+                    for a, b in zip(pa, pb))
+        log("parent-b3", stage=name, batch=8, y1_y2_y3_bitwise=ys,
+            gn_stats_bitwise=stats)
+        if not all(ys) or not stats:
+            raise AssertionError(f"B3's recompute differs from the parent's "
+                                 f"at {name}")
+        del x, params, dout, new, old
+    t = torch.rand(1 << 20, generator=gen).to(device) * 100
+    log("parent-scalar-division",
+        differs_share=(t / 127.0 != t / torch.full_like(t, 127.0))
+        .float().mean().item())
+    ends = 0
+    for key in sorted(int8_shapes):
+        x, kernel = int8_case(key, gen, device)
+        s = key[-1]
+        new = b6.int8_conv(x, kernel, s)
+        old = old6.int8_conv(x, kernel, s)
+        s_new = b6.quantize_activations(x)
+        s_old = old6.quantize_activations(x)
+        real = old6.quantize_activations
+        old6.quantize_activations = lambda _: s_new
+        try:
+            same_sx = old6.int8_conv(x, kernel, s)
+        finally:
+            old6.quantize_activations = real
+        torch.cuda.synchronize()
+        end = bool(torch.equal(new, old))
+        ends += end
+        log("parent-b6", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
+            bitwise_end_to_end=end,
+            s_x_equal=bool(torch.equal(s_new, s_old)),
+            bitwise_given_s_x=bool(torch.equal(new, same_sx)))
+        if not torch.equal(new, same_sx):
+            raise AssertionError(f"B6 differs from the parent's kernels at "
+                                 f"{key}")
+        del x, kernel, new, old, same_sx
+    log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends)
+
+
 def build_kernels():
     """One nvcc per source, all started together."""
     libs = (b1.LIB, b2.LIB, b3.LIB, b4.LIB, b1.PROJ_LIB, b6.LIB, b7.LIB)
@@ -1261,9 +1467,9 @@ def parse_phases(argv):
         return PHASES
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit(f"usage: chip_smoke.py [--phases "
-                         f"{','.join(PHASES)}]")
+                         f"{','.join(PHASES)},parent]")
     phases = tuple(argv[1].split(","))
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - {"parent"}
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}; choose from "
                          f"{PHASES}")
@@ -1306,6 +1512,10 @@ def main(argv=()) -> int:
         int8_launches, int8_shapes = check_int8_serving(device)
         launches["b6"] = int8_launches["b6"]
         errs["b6"] = check_b6(device, int8_shapes)
+    if "parent" in phases:
+        if not int8_shapes:
+            int8_shapes = check_int8_serving(device)[1]
+        check_parent(device, int8_shapes)
     if "proj" in phases:
         launches["b5"] = check_fused_proj(device)["b5"]
     if "entry" in phases:

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from retinanet_tpu_torch.ops.cuda import ParameterCache
+
 
 def get_activation(name: str) -> Callable[[Tensor], Tensor]:
     """Activation registry; ``gelu`` is the tanh form, as ``jax.nn.gelu``."""
@@ -129,7 +131,9 @@ class Conv(nn.Module):
 
     ``quantize`` runs the conv as ``ops/int8_conv.int8_conv`` (int8
     serving: kernel B6 on the card) with the output in x's dtype, then the
-    bias in that dtype; the parameters are the float model's."""
+    bias in that dtype; the parameters are the float model's, and their
+    quantized form is kept per version of the kernel (``ParameterCache``
+    of ``int8_conv.prepare_weights``)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  strides: int = 1, use_bias: bool = False,
@@ -144,6 +148,7 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(
             torch.empty(features, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self._int8_weights: Optional[ParameterCache] = None
 
     def weight_as(self, x: Tensor) -> Tensor:
         return self.kernel.to(dtype=x.dtype,
@@ -156,8 +161,11 @@ class Conv(nn.Module):
         if self.quantize:
             # Imported here: the op module imports this one.
             from retinanet_tpu_torch.ops import int8_conv as b6
+            if self._int8_weights is None:
+                self._int8_weights = ParameterCache(b6.prepare_weights)
             y = b6.int8_conv(x.permute(0, 2, 3, 1).contiguous(), self.kernel,
-                             s, x.dtype).permute(0, 3, 1, 2)
+                             s, x.dtype, weights=self._int8_weights(
+                                 self.kernel)).permute(0, 3, 1, 2)
         elif (top, left) == (bottom, right):
             y = F.conv2d(x, self.weight_as(x), stride=s, padding=(top, left))
         else:

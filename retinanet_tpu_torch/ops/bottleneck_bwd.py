@@ -10,6 +10,16 @@ seven passes of the TPU kernel at its rounding points: bf16 cotangents
 between ops (dn3, dn2, dn1 and each GN backward's dy), products accumulated
 in fp32, GN sums and every parameter gradient in fp32.
 
+The kernel reads six bf16 layouts of the three conv kernels (``w1``,
+``w1t``, ``w2``, ``w2r``, ``w3``, ``w3t``: ``BlockWeights``);
+``prepare_weights`` builds them, and a caller that keeps them per
+parameter version (``ParameterCache``) passes them as ``weights=``, as
+``ResNetBottleneck(fused_train=True)`` does.  The CUDA kernel recomputes
+y1..y3 with B1's own GEMM (bitwise B1's forward), writes the relu(GN
+affine) planes a1, a2 once, and runs its dgrad GEMMs on wgmma and its
+weight-gradient GEMMs on ``ldmatrix``-fed tiles from a ring of
+asynchronous copies (the source note of ``csrc/bottleneck_bwd.cu``).
+
 ``FusedBottleneckTrain`` (``fused_bottleneck_train``) is the autograd
 Function of the training path: its forward is B1 (``ops/bottleneck.py``)
 and it saves only the primals, x and the nine parameters; its backward is
@@ -20,7 +30,7 @@ kernels and GN vectors in fp32, ``dx`` bf16 NHWC.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,13 +42,15 @@ from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("bottleneck_bwd.cu", {
-    "fused_bottleneck_bwd": [_P] * 36 + [_I] * 10 + [ctypes.c_float, _P],
+    "fused_bottleneck_bwd": [_P] * 37 + [_I] * 10 + [ctypes.c_float, _P],
 })
 
-# Upper bound on the K-slices of a weight-gradient GEMM, and the number of
-# CTAs the slicing aims for.
+# Upper bound on the K-slices of a weight-gradient GEMM, the number of CTAs
+# the slicing aims for (four waves of 132 SMs), and the rows of K per
+# k-step of its tiles.
 _MAX_SLICES = 128
-_TARGET_CTAS = 1024
+_TARGET_CTAS = 528
+_WGRAD_BK = 32
 
 Grads = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
               Tensor, Tensor]
@@ -209,18 +221,53 @@ def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
             dg3.sum(0), db3.sum(0))
 
 
+class BlockWeights(NamedTuple):
+    """The bf16 layouts B3 reads: w1 [F,C] and w1t [C,F]; w2 [F,9F] (out,
+    tap, in) and w2r [F,9F] (in, reversed tap, out) for conv2's dgrad; w3
+    [C,F] and w3t [F,C]."""
+    w1: Tensor
+    w1t: Tensor
+    w2: Tensor
+    w2r: Tensor
+    w3: Tensor
+    w3t: Tensor
+
+
+def prepare_weights(k1: Tensor, k2: Tensor, k3: Tensor) -> BlockWeights:
+    """B3's six weight layouts of the OIHW kernels k1 [F,C,1,1], k2
+    [F,F,3,3], k3 [C,F,1,1]."""
+    bf = torch.bfloat16
+    f, c = k1.shape[:2]
+    w1 = k1.reshape(f, c).to(bf).contiguous()
+    w3 = k3.reshape(c, f).to(bf).contiguous()
+    return BlockWeights(
+        w1, w1.t().contiguous(),
+        k2.to(bf).permute(0, 2, 3, 1).reshape(f, 9 * f).contiguous(),
+        k2.to(bf).flip(2, 3).permute(1, 2, 3, 0).reshape(f, 9 * f)
+        .contiguous(),
+        w3, w3.t().contiguous())
+
+
+def _tile(n: int) -> int:
+    """The weight-gradient tile along a channel dimension: 128, or 64
+    where it does not divide (the C side's choice)."""
+    return 128 if n % 128 == 0 else 64
+
+
 def _slices(rows_m: int, cols_n: int, taps: int, k_rows: int) -> int:
     """K-slices of a weight-gradient GEMM: enough CTAs to fill the card,
-    at most one per 32-row k-step and at most ``_MAX_SLICES``."""
-    tiles = (rows_m // 64) * (cols_n // 64) * taps
-    k_steps = -(-k_rows // 32)
+    at most one per k-step of ``_WGRAD_BK`` rows and at most
+    ``_MAX_SLICES``."""
+    tiles = (rows_m // _tile(rows_m)) * (cols_n // _tile(cols_n)) * taps
+    k_steps = -(-k_rows // _WGRAD_BK)
     return max(1, min(k_steps, _MAX_SLICES, -(-_TARGET_CTAS // tiles)))
 
 
 def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
                          b1: Tensor, k2: Tensor, g2: Tensor, b2: Tensor,
                          k3: Tensor, g3: Tensor, b3: Tensor,
-                         eps: float = 1e-5, return_forward: bool = False
+                         eps: float = 1e-5, return_forward: bool = False,
+                         weights: Optional[BlockWeights] = None
                          ) -> Union[Grads, Tuple[Grads, Forward]]:
     """Gradients of ``fused_bottleneck`` with respect to every input.
 
@@ -230,7 +277,9 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     fp32 in the parameters' shapes.  On CUDA, C and F must be multiples of
     64.  ``return_forward`` also returns the forward the backward
     recomputed (a ``Forward``: bf16 y1..y3, fp32 GN mean/inv), for holding
-    the plain version to the same relu masks.
+    the plain version to the same relu masks.  ``weights``: the kernels'
+    ``prepare_weights``, kept by the caller; without it they are laid out
+    here.
     """
     if not x.is_cuda:
         grads = fused_bottleneck_bwd_plain(x, dout, k1, g1, b1, k2, g2, b2,
@@ -263,13 +312,16 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     check_cuda(dout, "dout", torch.bfloat16)
     bf, f32 = torch.bfloat16, torch.float32
     dev = x.device
-    w1 = k1.reshape(f, c).to(bf).contiguous()
-    w1t = w1.t().contiguous()
-    w2 = k2.to(bf).permute(0, 2, 3, 1).reshape(f, 9 * f).contiguous()
-    w2r = k2.to(bf).flip(2, 3).permute(1, 2, 3, 0).reshape(
-        f, 9 * f).contiguous()
-    w3 = k3.reshape(c, f).to(bf).contiguous()
-    w3t = w3.t().contiguous()
+    if weights is None:
+        weights = prepare_weights(k1, k2, k3)
+    for name, t, shape in zip(BlockWeights._fields, weights,
+                              ((f, c), (c, f), (f, 9 * f), (f, 9 * f),
+                               (c, f), (f, c))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"prepared {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        check_cuda(t, name, bf)
+    w1, w1t, w2, w2r, w3, w3t = weights
     gb = [t.float().contiguous() for t in affines]
     hw = h * w
     rows = bsz * hw
@@ -280,6 +332,7 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     y1 = torch.empty(bsz, hw, f, dtype=bf, device=dev)
     y2 = torch.empty_like(y1)
     y3 = torch.empty(bsz, hw, c, dtype=bf, device=dev)
+    planes = torch.empty(2, bsz, hw, f, dtype=bf, device=dev)
     part = torch.empty(bsz, mt, 2, c, dtype=f32, device=dev)
     ss = torch.empty(6, bsz, c, dtype=bf, device=dev)
     mv = torch.empty(6, bsz, c, dtype=f32, device=dev)
@@ -302,7 +355,7 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
              w2r.data_ptr(), gb[2].data_ptr(), gb[3].data_ptr(),
              w3.data_ptr(), w3t.data_ptr(), gb[4].data_ptr(),
              gb[5].data_ptr(), y1.data_ptr(), y2.data_ptr(), y3.data_ptr(),
-             part.data_ptr(), ss.data_ptr(), mv.data_ptr(), dn3.data_ptr(),
+             planes.data_ptr(), part.data_ptr(), ss.data_ptr(), mv.data_ptr(), dn3.data_ptr(),
              dn21.data_ptr(), dyb.data_ptr(), tt.data_ptr(), gimg.data_ptr(),
              wpart.data_ptr(), dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(),
              dk3.data_ptr(), *(t.data_ptr() for t in dgb),
@@ -327,14 +380,19 @@ fused_bottleneck_bwd.launches = 0
 
 class FusedBottleneckTrain(torch.autograd.Function):
     """Identity bottleneck for training: B1 forward, B3 backward.  Saves
-    only the primals; the backward recomputes every intermediate."""
+    only the primals; the backward recomputes every intermediate.
+    ``weights`` maps (k1, k2, k3) to their ``BlockWeights`` (a
+    ``ParameterCache`` of ``prepare_weights``) or is None."""
 
     @staticmethod
     def forward(ctx, x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                 k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor, g3: Tensor,
-                b3: Tensor, eps: float = 1e-5) -> Tensor:
+                b3: Tensor, eps: float = 1e-5,
+                weights: Optional[Callable[..., BlockWeights]] = None
+                ) -> Tensor:
         ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, k3, g3, b3)
         ctx.eps = eps
+        ctx.weights = weights
         return fused_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, eps)
 
     @staticmethod
@@ -342,16 +400,21 @@ class FusedBottleneckTrain(torch.autograd.Function):
         # dout arrives as a view of an NCHW gradient: make it contiguous
         # NHWC, as the kernel reads it.
         x, *params = ctx.saved_tensors
+        k1, k2, k3 = params[0], params[3], params[6]
+        weights = (ctx.weights(k1, k2, k3)
+                   if ctx.weights is not None and x.is_cuda else None)
         dx, *dparams = fused_bottleneck_bwd(x, dout.contiguous(), *params,
-                                            eps=ctx.eps)
-        return (dx, *dparams, None)
+                                            eps=ctx.eps, weights=weights)
+        return (dx, *dparams, None, None)
 
 
 def fused_bottleneck_train(x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                            k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor,
-                           g3: Tensor, b3: Tensor, eps: float = 1e-5
-                           ) -> Tensor:
+                           g3: Tensor, b3: Tensor, eps: float = 1e-5,
+                           weights: Optional[Callable[..., BlockWeights]]
+                           = None) -> Tensor:
     """``fused_bottleneck`` with the hand-written backward as its
-    gradient (the JAX package's custom VJP)."""
+    gradient (the JAX package's custom VJP); ``weights`` as in
+    ``FusedBottleneckTrain``."""
     return FusedBottleneckTrain.apply(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
-                                      eps)
+                                      eps, weights)

@@ -19,32 +19,57 @@
 // its wgrad takes the a1 taps with zeros outside the image after the affine
 // (never relu(shift)).  dx = bf16(dy1 . k1^T) + dn3 is a bf16 add.
 //
-// What bounds it here: three recomputed GEMMs, three dgrad GEMMs and three
-// wgrad GEMMs (about 3x B1's FLOP), and GN reductions between them that span
-// a whole image.  The TPU kernel kept the image in VMEM and accumulated the
-// weight gradients across a sequential batch grid; CTAs on an H100 run in
-// parallel in no order.  So the backward is cut at every reduction into
-// launches that stream their operands once (bf16 planes y1..y3, dn3, dn2/1
-// and dy stay in device memory for the duration of one block's backward):
-//   P1-P3  B1's conv GEMMs; the finalize also writes fp32 mean and inv-std
+// The TPU kernel kept the image in VMEM and accumulated the weight
+// gradients across a sequential batch grid; CTAs on an H100 run in parallel
+// in no order.  So the backward is cut at every reduction into launches
+// that stream their operands (bf16 planes y1..y3, a1, a2, dn3, dn2/1 and dy
+// stay in device memory for one block's backward):
+//   P1-P3  B1's conv GEMMs (bottleneck_common.cuh's mma.sync conv_gemm, the
+//          same K order and k16 steps as B1, so y1..y3 and the relu masks
+//          are B1's bit for bit); the finalize also writes fp32 mean and
+//          inv-std.  relu_planes then writes a1 = bf16(relu(GN1 affine(y1)))
+//          and a2 = bf16(relu(GN2 affine(y2))) once, the value the wgrad
+//          prologue used to recompute for every tap.
 //   P4     elementwise output mask -> dn3, per-CTA (sum d, sum d*yhat)
 //   GN3    fixed-order finalize -> t1, t2, per-image dgamma3/dbeta3; dy3
-//   P5     GEMM dy3.k3^T with a mask epilogue (GN2 affine > 0) -> dn2 and
-//          GN2 partials; wgrad dk3 = dy3^T . relu(GN2 affine of y2)
+//   P5     dgrad_gemm dy3.k3^T with a mask epilogue (GN2 affine > 0) -> dn2
+//          and GN2 partials; wgrad dk3 = dy3^T . a2
 //   GN2    finalize; dy2
-//   P6     implicit GEMM over the 9 reverse taps of dy2 with the GN1 mask
+//   P6     dgrad_gemm over the 9 reverse taps of dy2 with the GN1 mask
 //          epilogue -> dn1 and partials; wgrad dk2 over 9 taps of a1
 //   GN1    finalize; dy1
-//   P7     GEMM dy1.k1^T with a residual epilogue (+ dn3) -> dx;
+//   P7     dgrad_gemm dy1.k1^T with a residual epilogue (+ dn3) -> dx;
 //          wgrad dk1 = dy1^T . x
+// 24 launches per block.
+//
+// The GEMMs.  dgrad_gemm runs hopper_gemm.cuh's implicit-GEMM mainloop: 128
+// x BN tiles of one image (BN = 128, or 64 for the 64-wide res2), four
+// cp.async stages of 64 K values in the 128-byte swizzle, zero-filled
+// outside the image, and bf16 wgmma m64nBNk16 on two warpgroups, fp32
+// accumulation.  Its epilogue's per-column GN partials fit wgmma's
+// accumulator layout (each thread holds rows g and g + 8 of its warp's 16
+// for columns 8j + 2t, 8j + 2t + 1: a shuffle over g, then the 8 warps in
+// order through shared memory), so wgmma is used for every dgrad.
+// wgrad_gemm computes part[s, tap, i, j] = sum_r P[r, i] * Q_tap[r, j] over
+// the rows r of K-slice s: both operands are MN-major (pixels by channels),
+// staged as they lie with 16-byte cp.async copies in four stages of 32 rows
+// (padded rows, conflict-free), read by ldmatrix.x4.trans into mma.sync
+// m16n8k16 fragments, 128 x 128 tiles (64 where a dimension is 64) of
+// 32 x 32 warp tiles.  wgmma's transposed (MN-major) descriptors would
+// serve here too; this PR keeps the well-trodden ldmatrix path for them.
 // Weight gradients have K = B*H*W rows: K is cut into a fixed number of
-// slices, each CTA writes an fp32 partial, and a second launch sums the
+// slices, each CTA writes an fp32 partial, and reduce_slices sums the
 // slices in order; dgamma/dbeta are summed over images in order.  No float
-// atomics: repeated runs are bitwise equal.  The products use the simple
-// mma.sync 64x64x32 tiles of B1; wgmma/TMA pipelines are later work.
+// atomics: repeated runs are bitwise equal.
+//
+// What bounds it: three recomputed, three dgrad and three wgrad GEMMs
+// (about 3x B1's FLOP) at the bf16 tensor-core peak, plus the bf16 planes
+// each pass streams.  The recompute stays on B1's mma.sync tiles until B1
+// moves to wgmma, so that the masks stay B1's.
 
 #define BOTTLENECK_NS b3_fused_bottleneck_bwd
 #include "bottleneck_common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 namespace BOTTLENECK_NS {
@@ -184,80 +209,205 @@ __global__ void gn_bwd_dy(const bf16* __restrict__ dn, const bf16* __restrict__ 
   }
 }
 
+// a1 = bf16(relu(GN1 affine(y1))) and a2 = bf16(relu(GN2 affine(y2))) over
+// [B, HW, F] planes, eight channels per thread: the wgrad GEMMs' Q operands.
+__global__ void relu_planes(const bf16* __restrict__ y1,
+                            const bf16* __restrict__ y2,
+                            const bf16* __restrict__ sc1,
+                            const bf16* __restrict__ sh1,
+                            const bf16* __restrict__ sc2,
+                            const bf16* __restrict__ sh2,
+                            bf16* __restrict__ a1, bf16* __restrict__ a2,
+                            int HW, int F, size_t nvec) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < nvec;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = i * 8;
+    const size_t bc = e / ((size_t)HW * F) * F + e % F;
+    const bf16* ys[2] = {y1, y2};
+    const bf16* scs[2] = {sc1, sc2};
+    const bf16* shs[2] = {sh1, sh2};
+    bf16* outs[2] = {a1, a2};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      uint4 v = *reinterpret_cast<const uint4*>(ys[k] + e);
+      const uint4 s = *reinterpret_cast<const uint4*>(scs[k] + bc);
+      const uint4 h = *reinterpret_cast<const uint4*>(shs[k] + bc);
+      bf16* ve = reinterpret_cast<bf16*>(&v);
+      const bf16* se = reinterpret_cast<const bf16*>(&s);
+      const bf16* he = reinterpret_cast<const bf16*>(&h);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        ve[j] = rnd(fmaxf(affine(ve[j], se[j], he[j]), 0.f));
+      *reinterpret_cast<uint4*>(outs[k] + e) = v;
+    }
+  }
+}
+
+// dgrad: Y[b, p, n] = epi(sum_k A'[b, p, k] * Wt[n, k]) for the 128 rows p
+// of tile blockIdx.y of image b, k over TAPS taps x K0 channels (tap-major),
+// A' the cotangent at the tap's neighbour pixel (0 outside the image), with
+// conv_gemm's EPI_MASK or EPI_RESID epilogue; EPI_MASK writes per-CTA
+// per-channel partials to part[b, mt, 2, N] (MT = ceil(HW / 128)).
+template <int TAPS, int EPI, int BN>
+__global__ void __launch_bounds__(hopper::CONV_THREADS) dgrad_gemm(
+    const bf16* __restrict__ A, const bf16* __restrict__ Wt,
+    bf16* __restrict__ Y, float* __restrict__ part, int H, int W, int K0,
+    int N, EpiArgs ep) {
+  extern __shared__ char smem_raw[];
+  char* smem = hopper::align1024(smem_raw);
+  const int HW = H * W;
+  const int n0 = blockIdx.x * BN;
+  const int mt = blockIdx.y, MT = gridDim.y;
+  const int m0 = mt * hopper::CONV_BM;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int K = TAPS * K0;
+
+  hopper::CopyA<TAPS == 9 ? 3 : 1> pa;
+  {
+    const int p = m0 + (tid >> 1);
+    const int pp = p < HW ? p : 0;
+    pa.row.valid = p < HW;
+    pa.row.img = reinterpret_cast<const char*>(A + (size_t)b * HW * K0);
+    pa.row.iy0 = pp / W - (TAPS == 9);
+    pa.row.ix0 = pp % W - (TAPS == 9);
+    pa.H = H;
+    pa.W = W;
+    pa.cb = K0 * 2;
+    pa.kb = K * 2;
+  }
+  float acc[BN / 2];
+  hopper::conv_mainloop<BN>(
+      acc, smem, pa, reinterpret_cast<const char*>(Wt + (size_t)n0 * K),
+      K * 2);
+
+  float s[BN / 8][2], q[BN / 8][2];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = q[j][0] = q[j][1] = 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = m0 + hopper::acc_row(tid, half);
+    if (p >= HW) continue;
+    const size_t rowoff = ((size_t)b * HW + p) * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      bf16 v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + hopper::acc_col(tid, j) + e;
+        v[e] = rnd(acc[4 * j + 2 * half + e]);
+        if (EPI == EPI_MASK) {
+          const size_t bc = (size_t)b * N + col;
+          const bf16 yf = ep.yf[rowoff + col];
+          if (!(affine(yf, ep.sc[bc], ep.sh[bc]) > 0.f)) v[e] = rnd(0.f);
+          const float d = f32(v[e]);
+          const float yhat = (f32(yf) - ep.mean[bc]) * ep.inv[bc];
+          s[j][e] += d;
+          q[j][e] += d * yhat;
+        } else {
+          v[e] = rnd(f32(v[e]) + f32(ep.res[rowoff + col]));
+        }
+      }
+      *reinterpret_cast<__nv_bfloat162*>(Y + rowoff + n0 +
+                                         hopper::acc_col(tid, j)) =
+          __halves2bfloat162(v[0], v[1]);
+    }
+  }
+  if constexpr (EPI == EPI_MASK) {
+    // Column sums: over g within each warp, then over the 8 warps in order.
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], off);
+          q[j][e] += __shfl_xor_sync(0xffffffffu, q[j][e], off);
+        }
+    float* red = reinterpret_cast<float*>(smem);  // [8 warps][2][BN]
+    const int warp = tid >> 5;
+    if ((tid & 31) < 4) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = hopper::acc_col(tid, j) + e;
+          red[(warp * 2 + 0) * BN + col] = s[j][e];
+          red[(warp * 2 + 1) * BN + col] = q[j][e];
+        }
+    }
+    __syncthreads();
+    for (int c = tid; c < 2 * BN; c += hopper::CONV_THREADS) {
+      const int st = c / BN, col = c % BN;
+      float a = 0.f;
+      for (int w = 0; w < hopper::CONV_THREADS / 32; ++w)
+        a += red[(w * 2 + st) * BN + col];
+      part[(((size_t)b * MT + mt) * 2 + st) * N + n0 + col] = a;
+    }
+  }
+}
+
 // Weight gradient, one K-slice per CTA:
 //   part[s, tap, i, j] = sum over rows r of slice s of P[r, i] * Q_tap[r, j]
 // Rows r = b*HW + p run over every pixel of every image; Q_tap[r] is Q at
-// pixel p shifted by the tap's (dy, dx) in image b, zero outside the image,
-// and mapped through image b's GN affine + relu when PRO.  A warp loads one
-// 8-column group of all 32 rows of a k-step and stores it transposed, so the
-// shared-memory stores do not collide.
-template <int TAPS, bool PRO>
-__global__ void __launch_bounds__(NT) wgrad_gemm(
-    const bf16* __restrict__ P, const bf16* __restrict__ Q,
-    const bf16* __restrict__ qsc, const bf16* __restrict__ qsh,
-    float* __restrict__ part, int Bn, int H, int W, int M, int N, int S) {
-  __shared__ __align__(16) bf16 As[BM][LDS];
-  __shared__ __align__(16) bf16 Bs[BN][LDS];
+// pixel p shifted by the tap's (dy, dx) in image b, zero outside the image.
+// Both tiles are staged as they lie in memory (r-major, channels
+// contiguous) and read transposed by ldmatrix.
+constexpr int WG_BK = 32;      // rows of K per stage
+constexpr int WG_STAGES = 4;
 
-  const int j0 = blockIdx.x * BN, i0 = blockIdx.y * BM;
+template <int BI, int BJ>
+__host__ __device__ constexpr int wgrad_smem_bytes() {
+  return WG_STAGES * WG_BK * (BI + 8 + BJ + 8) * 2;
+}
+
+template <int TAPS, int BI, int BJ>
+__global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
+    const bf16* __restrict__ P, const bf16* __restrict__ Q,
+    float* __restrict__ part, int Bn, int H, int W, int M, int N, int S) {
+  constexpr int NTH = BI * BJ / 32;  // one warp per 32 x 32 output tile
+  constexpr int PI = BI + 8, PJ = BJ + 8;  // row pitch in bf16 (+16 bytes)
+  constexpr int STAGE = WG_BK * (PI + PJ);
+  extern __shared__ __align__(16) char wsm_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(wsm_raw);
+
+  const int j0 = blockIdx.x * BJ, i0 = blockIdx.y * BI;
   const int s = blockIdx.z / TAPS, tap = blockIdx.z % TAPS;
   const int HW = H * W;
   const long long R = (long long)Bn * HW;
-  const long long KTall = (R + BK - 1) / BK;
+  const long long KTall = (R + WG_BK - 1) / WG_BK;
   const int kt0 = (int)(s * KTall / S), kt1 = (int)((s + 1) * KTall / S);
   const int dy = TAPS == 9 ? tap / 3 - 1 : 0;
   const int dx = TAPS == 9 ? tap % 3 - 1 : 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
+  const int wi = warp / (BJ / 32), wj = warp % (BJ / 32);
   const int g = lane >> 2, t = lane & 3;
 
-  uint4 rp[2], rq[2];
   auto load = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * NT;
-      const int k = c & 31, col = (c >> 5) * 8;
-      const long long r = (long long)kt * BK + k;
-      uint4 vp = make_uint4(0u, 0u, 0u, 0u), vq = vp;
-      if (r < R) {
-        vp = *reinterpret_cast<const uint4*>(P + r * M + i0 + col);
+    bf16* ps = sm + (kt % WG_STAGES) * STAGE;
+    bf16* qs = ps + WG_BK * PI;
+    for (int c = tid; c < WG_BK * BI / 8; c += NTH) {
+      const int rr = c / (BI / 8), cc = c % (BI / 8);
+      const long long r = (long long)kt * WG_BK + rr;
+      const bool ok = r < R;
+      hopper::cp_async16(hopper::smem_u32(ps + rr * PI + cc * 8),
+                         P + (ok ? r * M + i0 + cc * 8 : 0), ok ? 16 : 0);
+    }
+    for (int c = tid; c < WG_BK * BJ / 8; c += NTH) {
+      const int rr = c / (BJ / 8), cc = c % (BJ / 8);
+      const long long r = (long long)kt * WG_BK + rr;
+      bool ok = r < R;
+      size_t off = 0;
+      if (ok) {
         const int b = (int)(r / HW);
         const int p = (int)(r - (long long)b * HW);
         const int yy = p / W + dy, xx = p % W + dx;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          vq = *reinterpret_cast<const uint4*>(
-              Q + ((size_t)b * HW + yy * W + xx) * N + j0 + col);
-          if (PRO) {
-            const uint4 sv = *reinterpret_cast<const uint4*>(
-                qsc + (size_t)b * N + j0 + col);
-            const uint4 hv = *reinterpret_cast<const uint4*>(
-                qsh + (size_t)b * N + j0 + col);
-            bf16* e = reinterpret_cast<bf16*>(&vq);
-            const bf16* se = reinterpret_cast<const bf16*>(&sv);
-            const bf16* he = reinterpret_cast<const bf16*>(&hv);
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              e[j] = rnd(fmaxf(affine(e[j], se[j], he[j]), 0.f));
-          }
-        }
+        ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        off = ((size_t)b * HW + yy * W + xx) * N + j0 + cc * 8;
       }
-      rp[i] = vp;
-      rq[i] = vq;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * NT;
-      const int k = c & 31, col = (c >> 5) * 8;
-      const bf16* pe = reinterpret_cast<const bf16*>(&rp[i]);
-      const bf16* qe = reinterpret_cast<const bf16*>(&rq[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        As[col + j][k] = pe[j];
-        Bs[col + j][k] = qe[j];
-      }
+      hopper::cp_async16(hopper::smem_u32(qs + rr * PJ + cc * 8),
+                         Q + (ok ? off : 0), ok ? 16 : 0);
     }
   };
 
@@ -269,30 +419,55 @@ __global__ void __launch_bounds__(NT) wgrad_gemm(
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mf][nf][j] = 0.f;
 
-  if (kt0 < kt1) {
-    load(kt0);
-    store();
+#pragma unroll
+  for (int st = 0; st < WG_STAGES - 1; ++st) {
+    if (kt0 + st < kt1) load(kt0 + st);
+    hopper::cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    hopper::cp_async_wait<WG_STAGES - 2>();
     __syncthreads();
-    for (int kt = kt0; kt < kt1; ++kt) {
-      if (kt + 1 < kt1) load(kt + 1);
-      mma_tile(acc, As, Bs, wm, wn, g, t);
-      __syncthreads();
-      if (kt + 1 < kt1) {
-        store();
-        __syncthreads();
+    if (kt + WG_STAGES - 1 < kt1) load(kt + WG_STAGES - 1);
+    hopper::cp_async_commit();
+    const bf16* ps = sm + (kt % WG_STAGES) * STAGE;
+    const bf16* qs = ps + WG_BK * PI;
+    const int q8 = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int ks = 0; ks < WG_BK; ks += 16) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+        hopper::ldsm_x4_trans(
+            af[mf], hopper::smem_u32(ps + (ks + r8 + (q8 >> 1) * 8) * PI +
+                                     wi * 32 + mf * 16 + (q8 & 1) * 8));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        hopper::ldsm_x4_trans(
+            r, hopper::smem_u32(qs + (ks + r8 + (q8 & 1) * 8) * PJ +
+                                wj * 32 + np * 16 + (q8 >> 1) * 8));
+        bfr[2 * np][0] = r[0];
+        bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2];
+        bfr[2 * np + 1][1] = r[3];
       }
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) mma16816(acc[mf][nf], af[mf], bfr[nf]);
     }
   }
+  hopper::cp_async_wait<0>();
 
   float* out = part + ((size_t)s * TAPS + tap) * M * N;
 #pragma unroll
   for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int i = i0 + wm * 32 + mf * 16 + g + half * 8;
+      const int i = i0 + wi * 32 + mf * 16 + g + half * 8;
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
-        const int j = j0 + wn * 32 + nf * 8 + 2 * t;
+        const int j = j0 + wj * 32 + nf * 8 + 2 * t;
         *reinterpret_cast<float2*>(out + (size_t)i * N + j) =
             make_float2(acc[mf][nf][half * 2], acc[mf][nf][half * 2 + 1]);
       }
@@ -341,30 +516,94 @@ int grid1d(size_t n, int threads) {
 
 using namespace BOTTLENECK_NS;
 
+namespace {
+
+// Lets a dgrad/wgrad instance take more than 48 KB of shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int TAPS, int EPI>
+cudaError_t dgrad(const bf16* A, const bf16* Wt, bf16* Y, float* part, int B,
+                  int H, int W, int K0, int N, const EpiArgs& ep,
+                  cudaStream_t st) {
+  const int MT = (H * W + hopper::CONV_BM - 1) / hopper::CONV_BM;
+  cudaError_t e;
+  const int kb = TAPS * K0 * 2;
+  if (N % 128 == 0) {
+    if ((e = allow_smem(dgrad_gemm<TAPS, EPI, 128>,
+                        hopper::conv_smem_bytes<128>())) != cudaSuccess)
+      return e;
+    dgrad_gemm<TAPS, EPI, 128><<<dim3(N / 128, MT, B), hopper::CONV_THREADS,
+                                 hopper::conv_smem_bytes<128>(kb), st>>>(
+        A, Wt, Y, part, H, W, K0, N, ep);
+  } else {
+    if ((e = allow_smem(dgrad_gemm<TAPS, EPI, 64>,
+                        hopper::conv_smem_bytes<64>())) != cudaSuccess)
+      return e;
+    dgrad_gemm<TAPS, EPI, 64><<<dim3(N / 64, MT, B), hopper::CONV_THREADS,
+                                hopper::conv_smem_bytes<64>(kb), st>>>(
+        A, Wt, Y, part, H, W, K0, N, ep);
+  }
+  return cudaGetLastError();
+}
+
+template <int TAPS, int BI, int BJ>
+cudaError_t wgrad_tile(const bf16* P, const bf16* Q, float* part, int B,
+                       int H, int W, int M, int N, int S, cudaStream_t st) {
+  constexpr int smem = wgrad_smem_bytes<BI, BJ>();
+  cudaError_t e = allow_smem(wgrad_gemm<TAPS, BI, BJ>, smem);
+  if (e != cudaSuccess) return e;
+  wgrad_gemm<TAPS, BI, BJ><<<dim3(N / BJ, M / BI, S * TAPS), BI * BJ / 32,
+                             smem, st>>>(P, Q, part, B, H, W, M, N, S);
+  return cudaGetLastError();
+}
+
+// 128-wide tiles where M (N) allows, else 64 (the wrapper's _slices makes
+// the same choice).
+template <int TAPS>
+cudaError_t wgrad(const bf16* P, const bf16* Q, float* part, int B, int H,
+                  int W, int M, int N, int S, cudaStream_t st) {
+  if (M % 128 == 0 && N % 128 == 0)
+    return wgrad_tile<TAPS, 128, 128>(P, Q, part, B, H, W, M, N, S, st);
+  if (M % 128 == 0)
+    return wgrad_tile<TAPS, 128, 64>(P, Q, part, B, H, W, M, N, S, st);
+  if (N % 128 == 0)
+    return wgrad_tile<TAPS, 64, 128>(P, Q, part, B, H, W, M, N, S, st);
+  return wgrad_tile<TAPS, 64, 64>(P, Q, part, B, H, W, M, N, S, st);
+}
+
+}  // namespace
+
 // x, dout, dx: [B,H,W,C] bf16.  Weights (bf16): w1 [F,C] and its transpose
 // w1t [C,F]; w2 [F,9F] forward taps (out, tap, in) and w2r [F,9F] the
 // dgrad's reversed taps (in, tap, out); w3 [C,F] and w3t [F,C].  g*/b* fp32
-// GN affines.  Scratch: y1, y2 [B,HW,F], y3 [B,HW,C] bf16; part [B, ceil(HW/
-// 64), 2, C] fp32; ss [6,B,C] bf16 scale/shift; mv [6,B,C] fp32 mean/inv;
-// dn3 [B,HW,C], dn21 [B,HW,F], dyb [B,HW,C] bf16; tt [2,B,C] fp32; gimg
-// [6,B,C] fp32; wpart fp32 of max(S1*F*C, S2*9*F*F, S3*C*F).  Outputs (fp32):
-// dk1 [F,C], dk2 [F,F,3,3], dk3 [C,F], dg*/db* [F] or [C].  S1..S3: K-slices
-// of the dk1, dk2, dk3 wgrads.  Requires C % 64 == 0 and F % 64 == 0 and
-// 1 <= S <= ceil(B*H*W/32) (checked by the Python wrapper).  Returns the
-// first launch error (0 = cudaSuccess).
+// GN affines.  Scratch: y1, y2 [B,HW,F], y3 [B,HW,C] bf16; planes [2,B,HW,F]
+// bf16 (a1, a2); part [B, ceil(HW/64), 2, C] fp32; ss [6,B,C] bf16
+// scale/shift; mv [6,B,C] fp32 mean/inv; dn3 [B,HW,C], dn21 [B,HW,F], dyb
+// [B,HW,C] bf16; tt [2,B,C] fp32; gimg [6,B,C] fp32; wpart fp32 of
+// max(S1*F*C, S2*9*F*F, S3*C*F).  Outputs (fp32): dk1 [F,C], dk2 [F,F,3,3],
+// dk3 [C,F], dg*/db* [F] or [C].  S1..S3: K-slices of the dk1, dk2, dk3
+// wgrads.  Requires C % 64 == 0 and F % 64 == 0 and 1 <= S <= ceil(B*H*W/32)
+// (checked by the Python wrapper).  Returns the first launch error (0 =
+// cudaSuccess).
 extern "C" int fused_bottleneck_bwd(
     const void* x, const void* dout, const void* w1, const void* w1t,
     const void* g1, const void* b1, const void* w2, const void* w2r,
     const void* g2, const void* b2, const void* w3, const void* w3t,
-    const void* g3, const void* b3, void* y1, void* y2, void* y3, void* part,
-    void* ss, void* mv, void* dn3, void* dn21, void* dyb, void* tt,
-    void* gimg, void* wpart, void* dx, void* dk1, void* dk2, void* dk3,
-    void* dg1, void* db1, void* dg2, void* db2, void* dg3, void* db3, int B,
-    int H, int W, int C, int F, int G1, int G3, int S1, int S2, int S3,
-    float eps, void* stream) {
+    const void* g3, const void* b3, void* y1, void* y2, void* y3,
+    void* planes, void* part, void* ss, void* mv, void* dn3, void* dn21,
+    void* dyb, void* tt, void* gimg, void* wpart, void* dx, void* dk1,
+    void* dk2, void* dk3, void* dg1, void* db1, void* dg2, void* db2,
+    void* dg3, void* db3, int B, int H, int W, int C, int F, int G1, int G3,
+    int S1, int S2, int S3, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  const int MT = (HW + BM - 1) / BM;
+  const int MT = (HW + BM - 1) / BM;  // B1's 64-row tiles (P1-P4)
+  const int MT2 = (HW + hopper::CONV_BM - 1) / hopper::CONV_BM;  // dgrad's
   const size_t bc = (size_t)B * C;
   bf16* s = static_cast<bf16*>(ss);
   bf16 *sc1 = s, *sh1 = s + bc, *sc2 = s + 2 * bc, *sh2 = s + 3 * bc,
@@ -381,17 +620,23 @@ extern "C" int fused_bottleneck_bwd(
   bf16 *Y1 = static_cast<bf16*>(y1), *Y2 = static_cast<bf16*>(y2),
        *Y3 = static_cast<bf16*>(y3), *DN3 = static_cast<bf16*>(dn3),
        *DN = static_cast<bf16*>(dn21), *DY = static_cast<bf16*>(dyb);
+  bf16* A1 = static_cast<bf16*>(planes);
+  bf16* A2 = A1 + (size_t)B * HW * F;
   const float *G1p = static_cast<const float*>(g1),
               *G2p = static_cast<const float*>(g2),
               *G3p = static_cast<const float*>(g3);
   const EpiArgs none = {};
   const size_t smF = (2 * F + 2 * G1) * sizeof(float);
   const size_t smC = (2 * C + 2 * G3) * sizeof(float);
+  const size_t nF = (size_t)B * HW * F / 8;
   cudaError_t e;
 #define CHECK()                                         \
   if ((e = cudaGetLastError()) != cudaSuccess) return e
+#define CALL(expr)                                      \
+  if ((e = (expr)) != cudaSuccess) return e
 
-  // P1-P3: the forward, as B1 computes it, keeping fp32 mean/inv.
+  // P1-P3: the forward, as B1 computes it, keeping fp32 mean/inv; then the
+  // wgrads' relu(GN affine) planes a1, a2.
   conv_gemm<1, false, EPI_STATS><<<dim3(F / BN, MT, B), NT, 0, st>>>(
       X, static_cast<const bf16*>(w1), nullptr, nullptr, Y1, pt, H, W, C, F,
       none);
@@ -414,6 +659,9 @@ extern "C" int fused_bottleneck_bwd(
                                    static_cast<const float*>(b3), eps, sc3,
                                    sh3, mean3, inv3);
   CHECK();
+  relu_planes<<<grid1d(nF, 256), 256, 0, st>>>(Y1, Y2, sc1, sh1, sc2, sh2,
+                                              A1, A2, HW, F, nF);
+  CHECK();
 
   // P4 + GN3 backward.
   out_mask_bwd<<<dim3(C / BN, MT, B), 256, 0, st>>>(
@@ -429,53 +677,42 @@ extern "C" int fused_bottleneck_bwd(
 
   // P5: da2 = dy3.k3^T masked by GN2 -> dn2; dk3 = dy3^T . a2.
   const EpiArgs ep2 = {Y2, sc2, sh2, mean2, inv2, nullptr};
-  conv_gemm<1, false, EPI_MASK><<<dim3(F / BN, MT, B), NT, 0, st>>>(
-      DY, static_cast<const bf16*>(w3t), nullptr, nullptr, DN, pt, H, W, C, F,
-      ep2);
-  CHECK();
-  wgrad_gemm<1, true><<<dim3(F / BN, C / BM, S3), NT, 0, st>>>(
-      DY, Y2, sc2, sh2, wp, B, H, W, C, F, S3);
-  CHECK();
+  CALL((dgrad<1, EPI_MASK>(DY, static_cast<const bf16*>(w3t), DN, pt, B, H,
+                           W, C, F, ep2, st)));
+  CALL(wgrad<1>(DY, A2, wp, B, H, W, C, F, S3, st));
   reduce_slices<<<grid1d((size_t)C * F, 256), 256, 0, st>>>(
       wp, static_cast<float*>(dk3), S3, 1, C, F);
   CHECK();
-  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT, F, G1, HW, G2p, t1, t2,
+  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT2, F, G1, HW, G2p, t1, t2,
                                        gi + 2 * bc, gi + 3 * bc);
   CHECK();
-  gn_bwd_dy<<<grid1d((size_t)B * HW * F / 8, 256), 256, 0, st>>>(
-      DN, Y2, G2p, mean2, inv2, t1, t2, DY, HW, F, (size_t)B * HW * F / 8);
+  gn_bwd_dy<<<grid1d(nF, 256), 256, 0, st>>>(DN, Y2, G2p, mean2, inv2, t1,
+                                             t2, DY, HW, F, nF);
   CHECK();
 
   // P6: conv2 dgrad over the reverse taps of dy2, masked by GN1 -> dn1
   // (over dn2, which dy2 has consumed); dk2 over the nine a1 taps.
   const EpiArgs ep1 = {Y1, sc1, sh1, mean1, inv1, nullptr};
-  conv_gemm<9, false, EPI_MASK><<<dim3(F / BN, MT, B), NT, 0, st>>>(
-      DY, static_cast<const bf16*>(w2r), nullptr, nullptr, DN, pt, H, W, F, F,
-      ep1);
-  CHECK();
-  wgrad_gemm<9, true><<<dim3(F / BN, F / BM, S2 * 9), NT, 0, st>>>(
-      DY, Y1, sc1, sh1, wp, B, H, W, F, F, S2);
-  CHECK();
+  CALL((dgrad<9, EPI_MASK>(DY, static_cast<const bf16*>(w2r), DN, pt, B, H,
+                           W, F, F, ep1, st)));
+  CALL(wgrad<9>(DY, A1, wp, B, H, W, F, F, S2, st));
   reduce_slices<<<grid1d((size_t)9 * F * F, 256), 256, 0, st>>>(
       wp, static_cast<float*>(dk2), S2, 9, F, F);
   CHECK();
-  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT, F, G1, HW, G1p, t1, t2, gi,
+  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT2, F, G1, HW, G1p, t1, t2, gi,
                                        gi + bc);
   CHECK();
-  gn_bwd_dy<<<grid1d((size_t)B * HW * F / 8, 256), 256, 0, st>>>(
-      DN, Y1, G1p, mean1, inv1, t1, t2, DY, HW, F, (size_t)B * HW * F / 8);
+  gn_bwd_dy<<<grid1d(nF, 256), 256, 0, st>>>(DN, Y1, G1p, mean1, inv1, t1,
+                                             t2, DY, HW, F, nF);
   CHECK();
 
   // P7: dx = bf16(dy1.k1^T) + dn3; dk1 = dy1^T . x.
   EpiArgs ep0 = {};
   ep0.res = DN3;
-  conv_gemm<1, false, EPI_RESID><<<dim3(C / BN, MT, B), NT, 0, st>>>(
-      DY, static_cast<const bf16*>(w1t), nullptr, nullptr,
-      static_cast<bf16*>(dx), nullptr, H, W, F, C, ep0);
-  CHECK();
-  wgrad_gemm<1, false><<<dim3(C / BN, F / BM, S1), NT, 0, st>>>(
-      DY, X, nullptr, nullptr, wp, B, H, W, F, C, S1);
-  CHECK();
+  CALL((dgrad<1, EPI_RESID>(DY, static_cast<const bf16*>(w1t),
+                            static_cast<bf16*>(dx), nullptr, B, H, W, F, C,
+                            ep0, st)));
+  CALL(wgrad<1>(DY, X, wp, B, H, W, F, C, S1, st));
   reduce_slices<<<grid1d((size_t)F * C, 256), 256, 0, st>>>(
       wp, static_cast<float*>(dk1), S1, 1, F, C);
   CHECK();
@@ -491,5 +728,6 @@ extern "C" int fused_bottleneck_bwd(
   }
   reduce_images<<<6, 256, 0, st>>>(v, B);
   return cudaGetLastError();
+#undef CALL
 #undef CHECK
 }

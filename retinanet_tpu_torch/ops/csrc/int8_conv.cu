@@ -3,51 +3,108 @@
 // Replaces the TPU kernel retinanet_tpu/ops/pallas/int8_conv.py:int8_conv3x3
 // (_conv_kernel) and serves the quantized model path that the JAX package
 // runs through XLA (retinanet_tpu/models/layers.py:_int8_conv):
-//     x_q = clip(rint(x / s_x), -127, 127)         s_x: one fp32 scalar
+//     s_x = max(max|x|, 1e-8) / 127                 one fp32 scalar
+//     x_q = clip(rint(x / s_x), -127, 127)
 //     acc = sum_k x_q * w_q  (s8 x s8 -> s32, exact, TF-SAME zero padding)
 //     y   = float(acc) * (s_x * s_w[f])  [+ bias[f]] [relu] -> out dtype
-// for 1x1 and 3x3 windows at stride 1 or 2.
+// for 1x1 and 3x3 windows at stride 1 or 2.  The weights arrive quantized
+// (w_q [F, k*k*C] tap-major, s_w fp32): the wrapper quantizes them once per
+// parameter version, so serving launches three kernels per conv:
+//   1. int8_amax: max|x| over the whole tensor, 16 bytes per load; each CTA
+//      writes its maximum, and the last CTA to finish (an atomic ticket)
+//      reduces them and writes s_x = max(amax, 1e-8) / 127 with a true
+//      division.  Max is exact, so the result does not depend on order.
+//      |x| compares as the unsigned bit pattern of a non-negative float.
+//   2. int8_quantize: x -> x_q, 16 elements per thread, a true IEEE
+//      division (__fdiv_rn) as the model path divides (the TPU kernel
+//      multiplied by 1/s_x); rintf rounds half to even like jnp.round.
+//   3. int8_conv_gemm: implicit GEMM, M = B*Ho*Wo output pixels (all images
+//      in one M), N = F, K = k*k*C tap-major, through hopper_gemm.cuh's
+//      mainloop: 128 x BN tiles (BN = 64, 128 or 256 from F, so the 64-wide
+//      res2 convs fill their tile), four cp.async stages of 128 bytes of K
+//      in the 128-byte swizzle, zero-filled outside the image (src-size 0),
+//      and int8 wgmma m64nBNk32 on two warpgroups.  Both operands are
+//      K-major (x_q is NHWC, w_q tap-major), the layout int8 wgmma takes,
+//      so wgmma fits every shape.  The epilogue converts acc with
+//      __int2float_rn (|acc| reaches 127^2 * 9 * 512 > 2^24, so it rounds,
+//      as XLA's does), multiplies by the fp32 product s_x*s_w[f], adds the
+//      bias in fp32, applies relu and casts.  s32 sums are exact in any
+//      order, so the result equals the plain version (float64 sums of the
+//      same integers, same fp32 epilogue) bitwise.
 //
-// Two launches:
-//   1. int8_quantize: x (bf16 or fp32, NHWC) -> x_q (s8), 16 elements per
-//      thread.  The division is a true IEEE division (__fdiv_rn), as the
-//      model path divides (the TPU kernel multiplied by 1/s_x); rintf
-//      rounds half to even like jnp.round and torch.round.  s_x is read
-//      from device memory, so the host never waits for it.  This is the
-//      TPU kernel's "quantize once" VMEM scratch, here in device memory.
-//   2. int8_conv_gemm: implicit GEMM, M = B*Ho*Wo output pixels (one image
-//      per grid z), N = F, K = k*k*C tap-major.  64x64 output tiles, 64-byte
-//      K tiles in shared memory, mma.sync m16n8k32 s8 tiles accumulated in
-//      s32.  C % 64 == 0 (checked by the wrapper), so a K tile never spans
-//      two taps; an out-of-image tap loads quantized zeros.  The epilogue
-//      converts acc with __int2float_rn (|acc| reaches 127^2 * 9 * 512 >
-//      2^24, so the conversion rounds, as XLA's does), multiplies by the
-//      fp32 product s_x*s_w[f], adds the bias in fp32, applies relu and
-//      casts.  The plain PyTorch version convolves the same integers in
-//      float64 and applies the same fp32 epilogue: the two agree bitwise.
-//
-// What bounds it here: at 640 px the quantized convs are K = C..9C GEMMs
-// over B*H*W rows, ~39 GMAC per image, 0.04 ms per image at 1,979 TOPS, so
-// reading x (bf16) and writing y (bf16) sets the bound for most of them.
-// This first version stages both operands through registers into shared
-// memory with one tile of prefetch; TMA/wgmma (int8 wgmma takes K = 32)
-// and quantizing x inside the GEMM's producer are later work.  Compile
-// with -fmad=false (the epilogue's multiply and add each round).
+// What bounds it: at 640 px the quantized convs are K = C..9C GEMMs over
+// B*Ho*Wo rows, ~39 GMAC per image, 0.04 ms per image at 1,979 TOPS, so
+// reading x (bf16) and writing y (bf16) sets the bound for nearly all of
+// them.  The quantize pass still writes x_q to device memory and the GEMM
+// reads it back (up to nine times for a 3x3 conv, from L2).  Compile with
+// -fmad=false (the epilogue's multiply and add each round).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 namespace b6_int8_conv {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 64;        // bytes (= s8 elements) of K per tile
-constexpr int NT = 128;       // 4 warps, 2x2 over the 64x64 tile
-constexpr int LDS = BK + 16;  // smem row pitch in bytes: 80, conflict-free
-
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
+
+constexpr int AMAX_THREADS = 256;
+constexpr int AMAX_MAX_CTAS = 1024;  // the wrapper's partial buffer
+
+// max|x| of x (n16 groups of 16 bytes) -> s_x.  partial holds one word per
+// CTA; ticket is 0 on entry and is left 0 by the last CTA.
+template <typename T>
+__global__ void __launch_bounds__(AMAX_THREADS) int8_amax(
+    const T* __restrict__ x, size_t n16, unsigned* __restrict__ partial,
+    unsigned* __restrict__ ticket, float* __restrict__ sx) {
+  __shared__ unsigned wmax[AMAX_THREADS / 32];
+  __shared__ bool last;
+  unsigned m = 0;
+  for (size_t i = blockIdx.x * (size_t)AMAX_THREADS + threadIdx.x; i < n16;
+       i += (size_t)gridDim.x * AMAX_THREADS) {
+    const uint4 v = reinterpret_cast<const uint4*>(x)[i];
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(T) == 2) {
+        m = max(m, max(w[j] & 0x7fffu, (w[j] >> 16) & 0x7fffu));
+      } else {
+        m = max(m, w[j] & 0x7fffffffu);
+      }
+    }
+  }
+  if constexpr (sizeof(T) == 2) m <<= 16;  // bf16 bits -> fp32 bits
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned a = 0;
+    for (int w = 0; w < AMAX_THREADS / 32; ++w) a = max(a, wmax[w]);
+    partial[blockIdx.x] = a;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  unsigned a = 0;
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += AMAX_THREADS)
+    a = max(a, (unsigned)*reinterpret_cast<volatile unsigned*>(partial + i));
+  a = __reduce_max_sync(0xffffffffu, a);
+  __syncthreads();
+  if (lane == 0) wmax[warp] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned b = 0;
+    for (int w = 0; w < AMAX_THREADS / 32; ++w) b = max(b, wmax[w]);
+    *sx = __fdiv_rn(fmaxf(__uint_as_float(b), 1e-8f), 127.f);
+    *ticket = 0u;
+  }
+}
 
 __device__ __forceinline__ int8_t quantize(float v, float s) {
   float r = rintf(__fdiv_rn(v, s));
@@ -57,9 +114,9 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
 
 // 16 elements per thread: n16 = n / 16 groups.
 template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x,
-                                const float* __restrict__ sx,
-                                int8_t* __restrict__ q, size_t n16) {
+__global__ void int8_quantize(const T* __restrict__ x,
+                              const float* __restrict__ sx,
+                              int8_t* __restrict__ q, size_t n16) {
   const float s = *sx;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n16;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -85,15 +142,6 @@ __global__ void quantize_kernel(const T* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ void mma16832(int* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) =
       __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
@@ -102,155 +150,171 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// out[b, p, n] = epi(sum_k x_q[b, tap(p, k)] * w_q[n, k]) for one image b.
-template <int KS, typename OutT>
-__global__ void __launch_bounds__(NT) int8_conv_gemm(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
+// The A producer of a 1x1 conv that quantizes as it loads: 64 bf16 of x
+// per thread per stage, divided by s_x, rounded and clipped as
+// int8_quantize does, stored to the stage with st.shared.  It replaces the
+// quantize pass and its x_q round trip through device memory.
+struct QuantizeA {
+  static constexpr bool kAsync = false;
+  ConvRow row;  // img: a bf16 NHWC image, C channels per pixel
+  int H, W, C;
+  float s;
+
+  __device__ __forceinline__ void operator()(uint32_t sa, int k0,
+                                             int tid) const {
+    const int r = tid >> 1, h = tid & 1;
+    const int c = k0 + h * 64;
+    const bool ok = row.valid && c < C && row.iy0 >= 0 && row.iy0 < H &&
+                    row.ix0 >= 0 && row.ix0 < W;
+    uint4 v[8];
+    if (ok) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          row.img + (((size_t)row.iy0 * W + row.ix0) * C + c) * 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = src[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    const bf16* e = reinterpret_cast<const bf16*>(v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint4 o;
+      int8_t* ob = reinterpret_cast<int8_t*>(&o);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        ob[i] = quantize(__bfloat162float(e[j * 16 + i]), s);
+      st_shared16(sa + sw128(r, h * 4 + j), o);
+    }
+  }
+};
+
+// out[p, n] = epi(sum_k x_q[tap(p, k)] * w_q[n, k]) over M = B*Ho*Wo rows;
+// with QUANT (1x1 only) the A rows are quantized from bf16 x as they load.
+template <int BN, int KS, typename OutT, bool QUANT>
+__global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
+    const void* __restrict__ xin, const int8_t* __restrict__ wq,
     const float* __restrict__ sx, const float* __restrict__ sw,
-    const float* __restrict__ bias, OutT* __restrict__ out, int H, int W,
-    int C, int F, int stride, int pad_t, int pad_l, int Ho, int Wo,
+    const float* __restrict__ bias, OutT* __restrict__ out, int M, int H,
+    int W, int C, int F, int stride, int pad_t, int pad_l, int Ho, int Wo,
     int has_bias, int relu) {
-  __shared__ __align__(16) int8_t As[BM][LDS];
-  __shared__ __align__(16) int8_t Bs[BN][LDS];
-
-  const int HWo = Ho * Wo;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int b = blockIdx.z;
-  const int K = KS * KS * C;
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int8_t* xb = xq + (size_t)b * H * W * C;
-
-  // This thread's two 16-byte chunks of each 64x64-byte tile.
-  int oy[2], ox[2];
-  bool pval[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int p = m0 + ((tid + i * NT) >> 2);
-    pval[i] = p < HWo;
-    oy[i] = p / Wo;
-    ox[i] = p - oy[i] * Wo;
-  }
-
-  uint4 ra[2], rb[2];
-  auto load = [&](int kt) {
-    const int k0 = kt * BK;
-    const int tap = k0 / C;
-    const int c0 = k0 - tap * C;
-    const int dy = tap / KS, dx = tap % KS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * NT;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int iy = oy[i] * stride + dy - pad_t;
-      const int ix = ox[i] * stride + dx - pad_l;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (pval[i] && iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = *reinterpret_cast<const uint4*>(xb + ((size_t)iy * W + ix) * C +
-                                            c0 + kc);
-      ra[i] = v;
-      rb[i] = *reinterpret_cast<const uint4*>(wq + (size_t)(n0 + r) * K +
-                                              k0 + kc);
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * NT;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      *reinterpret_cast<uint4*>(&As[r][kc]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[r][kc]) = rb[i];
-    }
-  };
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mf][nf][j] = 0;
-
-  const int KT = K / BK;
-  load(0);
-  store();
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) load(kt + 1);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf) {
-        const int r = wm * 32 + mf * 16 + g;
-        af[mf][0] = *reinterpret_cast<const uint32_t*>(&As[r][ks + 4 * t]);
-        af[mf][1] =
-            *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 4 * t]);
-        af[mf][2] =
-            *reinterpret_cast<const uint32_t*>(&As[r][ks + 16 + 4 * t]);
-        af[mf][3] =
-            *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 16 + 4 * t]);
-      }
-#pragma unroll
-      for (int nf = 0; nf < 4; ++nf) {
-        const int n = wn * 32 + nf * 8 + g;
-        bfr[nf][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][ks + 4 * t]);
-        bfr[nf][1] =
-            *reinterpret_cast<const uint32_t*>(&Bs[n][ks + 16 + 4 * t]);
-      }
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf) mma16832(acc[mf][nf], af[mf], bfr[nf]);
-    }
-    __syncthreads();
-    if (kt + 1 < KT) {
-      store();
-      __syncthreads();
-    }
-  }
-
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * CONV_BM;
+  const int K = KS * KS * C;
   const float s = *sx;
+
+  ConvRow row;
+  {
+    const int p = m0 + (tid >> 1);
+    row.valid = p < M;
+    const int pp = row.valid ? p : 0;
+    const int hwo = Ho * Wo;
+    const int b = pp / hwo, rem = pp - b * hwo;
+    const int oy = rem / Wo, ox = rem - oy * Wo;
+    row.img = static_cast<const char*>(xin) +
+              (size_t)b * H * W * C * (QUANT ? 2 : 1);
+    row.iy0 = oy * stride - pad_t;
+    row.ix0 = ox * stride - pad_l;
+  }
+  const char* wt = reinterpret_cast<const char*>(wq) + (size_t)n0 * K;
+  int acc[BN / 2];
+  if constexpr (QUANT) {
+    static_assert(KS == 1, "the quantizing producer serves 1x1 convs");
+    const QuantizeA pa = {row, H, W, C, s};
+    conv_mainloop<BN>(acc, smem, pa, wt, K);
+  } else {
+    const CopyA<KS> pa = {row, H, W, C, K};
+    conv_mainloop<BN>(acc, smem, pa, wt, K);
+  }
+
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
+  for (int half = 0; half < 2; ++half) {
+    const int p = m0 + acc_row(tid, half);
+    if (p >= M) continue;
+    OutT* orow = out + (size_t)p * F + n0;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = m0 + wm * 32 + mf * 16 + g + half * 8;
-      if (p >= HWo) continue;
-      OutT* orow = out + ((size_t)b * HWo + p) * F;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = acc_col(tid, j);
+      float v[2];
 #pragma unroll
-      for (int nf = 0; nf < 4; ++nf) {
-        const int col = n0 + wn * 32 + nf * 8 + 2 * t;
-        float v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float y = __fmul_rn(__int2float_rn(acc[mf][nf][half * 2 + j]),
-                              __fmul_rn(s, sw[col + j]));
-          if (has_bias) y = __fadd_rn(y, bias[col + j]);
-          if (relu) y = fmaxf(y, 0.f);
-          v[j] = y;
-        }
-        store2(orow + col, v[0], v[1]);
+      for (int e = 0; e < 2; ++e) {
+        float y = __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + e]),
+                            __fmul_rn(s, sw[n0 + col + e]));
+        if (has_bias) y = __fadd_rn(y, bias[n0 + col + e]);
+        if (relu) y = fmaxf(y, 0.f);
+        v[e] = y;
       }
+      store2(orow + col, v[0], v[1]);
     }
   }
 }
 
-template <int KS, typename OutT>
-cudaError_t launch_conv(const int8_t* xq, const int8_t* wq, const float* sx,
+template <int BN, int KS, typename OutT, bool QUANT = false>
+cudaError_t launch_conv(const void* xq, const int8_t* wq, const float* sx,
                         const float* sw, const float* bias, void* out, int B,
                         int H, int W, int C, int F, int stride, int pad_t,
                         int pad_l, int Ho, int Wo, int has_bias, int relu,
                         cudaStream_t st) {
-  const dim3 grid(F / BN, (Ho * Wo + BM - 1) / BM, B);
-  int8_conv_gemm<KS, OutT><<<grid, NT, 0, st>>>(
-      xq, wq, sx, sw, bias, static_cast<OutT*>(out), H, W, C, F, stride,
+  auto kernel = int8_conv_gemm<BN, KS, OutT, QUANT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_smem_bytes<BN>());
+  if (e != cudaSuccess) return e;
+  const int M = B * Ho * Wo;
+  const dim3 grid(F / BN, (M + CONV_BM - 1) / CONV_BM);
+  kernel<<<grid, CONV_THREADS, conv_smem_bytes<BN>(KS * KS * C), st>>>(
+      xq, wq, sx, sw, bias, static_cast<OutT*>(out), M, H, W, C, F, stride,
       pad_t, pad_l, Ho, Wo, has_bias, relu);
   return cudaGetLastError();
+}
+
+// ks 1 or 3, or 0 for a 1x1 conv that quantizes bf16 x as it loads.
+template <int BN, typename OutT>
+cudaError_t launch_conv_ks(int ks, const void* xq, const int8_t* wq,
+                           const float* sx, const float* sw,
+                           const float* bias, void* out, int B, int H, int W,
+                           int C, int F, int stride, int pad_t, int pad_l,
+                           int Ho, int Wo, int has_bias, int relu,
+                           cudaStream_t st) {
+  if (ks == 0)
+    return launch_conv<BN, 1, OutT, true>(xq, wq, sx, sw, bias, out, B, H, W,
+                                          C, F, stride, pad_t, pad_l, Ho, Wo,
+                                          has_bias, relu, st);
+  if (ks == 1)
+    return launch_conv<BN, 1, OutT>(xq, wq, sx, sw, bias, out, B, H, W, C, F,
+                                    stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                    relu, st);
+  return launch_conv<BN, 3, OutT>(xq, wq, sx, sw, bias, out, B, H, W, C, F,
+                                  stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                  relu, st);
+}
+
+template <typename OutT>
+cudaError_t launch_conv_bn(int bn, int ks, const void* xq,
+                           const int8_t* wq, const float* sx, const float* sw,
+                           const float* bias, void* out, int B, int H, int W,
+                           int C, int F, int stride, int pad_t, int pad_l,
+                           int Ho, int Wo, int has_bias, int relu,
+                           cudaStream_t st) {
+  if (bn == 64)
+    return launch_conv_ks<64, OutT>(ks, xq, wq, sx, sw, bias, out, B, H, W, C,
+                                    F, stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                    relu, st);
+  if (bn == 128)
+    return launch_conv_ks<128, OutT>(ks, xq, wq, sx, sw, bias, out, B, H, W,
+                                     C, F, stride, pad_t, pad_l, Ho, Wo,
+                                     has_bias, relu, st);
+  return launch_conv_ks<256, OutT>(ks, xq, wq, sx, sw, bias, out, B, H, W, C,
+                                   F, stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                   relu, st);
+}
+
+int grid_for(size_t n16, int per_cta, int most) {
+  const size_t want = (n16 + per_cta - 1) / per_cta;
+  return (int)(want < (size_t)most ? (want > 0 ? want : 1) : most);
 }
 
 }  // namespace b6_int8_conv
@@ -258,50 +322,69 @@ cudaError_t launch_conv(const int8_t* xq, const int8_t* wq, const float* sx,
 
 using namespace b6_int8_conv;
 
-// x: n elements (n % 16 == 0), bf16 (in_code 0) or fp32 (1); sx: device
-// fp32 scalar; q: n int8.  Returns the launch error (0 = cudaSuccess).
-extern "C" int int8_quantize(const void* x, int in_code, const void* sx,
-                             void* q, size_t n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n16 = n / 16;
-  const size_t want = (n16 + 255) / 256;
-  const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
-  if (in_code == 0)
-    quantize_kernel<bf16><<<blocks, 256, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(sx),
-        static_cast<int8_t*>(q), n16);
-  else
-    quantize_kernel<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(sx),
-        static_cast<int8_t*>(q), n16);
-  return cudaGetLastError();
-}
-
-// xq [B,H,W,C] s8; wq [F, ks*ks*C] s8 (tap-major k); sx fp32 scalar, sw [F]
-// and bias [F] fp32 (read only when has_bias; may be null otherwise); out
-// [B,Ho,Wo,F] bf16 (out_code 0) or fp32 (1).
+// One int8 convolution, its launches in order; `which` selects them (bit
+// 0 int8_amax, bit 1 int8_quantize, bit 2 int8_conv_gemm), so that a caller
+// can time the GEMM alone.  With fuse (a 1x1 conv of bf16 x) the GEMM
+// quantizes x as it loads it and the quantize launch is skipped.
+//   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq [B,H,W,C] s8 scratch;
+//   scratch: AMAX_MAX_CTAS + 2 words: per-CTA maxima, the ticket (0 on
+//   entry, left 0), then s_x (fp32);
+//   wq [F, ks*ks*C] s8 (tap-major k); sw [F] and bias [F] fp32 (bias read
+//   only when has_bias; may be null otherwise);
+//   out [B,Ho,Wo,F] bf16 (out_code 0) or fp32 (1); bn in {64, 128, 256}
+//   divides F.
 // Requires C % 64 == 0 and F % 64 == 0 (checked by the Python wrapper).
-extern "C" int int8_conv_fwd(const void* xq, const void* wq, const void* sx,
-                             const void* sw, const void* bias, void* out,
-                             int B, int H, int W, int C, int F, int ks,
-                             int stride, int pad_t, int pad_l, int Ho, int Wo,
-                             int out_code, int has_bias, int relu,
-                             void* stream) {
+// Returns the first launch error (0 = cudaSuccess).
+extern "C" int int8_conv_forward(const void* x, int in_code, void* xq,
+                                 void* scratch, const void* wq,
+                                 const void* sw, const void* bias, void* out,
+                                 int B, int H, int W, int C, int F, int ks,
+                                 int stride, int pad_t, int pad_l, int Ho,
+                                 int Wo, int out_code, int has_bias, int relu,
+                                 int bn, int which, int fuse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* x8 = static_cast<const int8_t*>(xq);
-  const int8_t* w8 = static_cast<const int8_t*>(wq);
-  const float* s = static_cast<const float*>(sx);
-  const float* w = static_cast<const float*>(sw);
-  const float* bi = static_cast<const float*>(bias);
-  if (ks == 1 && out_code == 0)
-    return launch_conv<1, bf16>(x8, w8, s, w, bi, out, B, H, W, C, F, stride,
-                                pad_t, pad_l, Ho, Wo, has_bias, relu, st);
-  if (ks == 1)
-    return launch_conv<1, float>(x8, w8, s, w, bi, out, B, H, W, C, F, stride,
-                                 pad_t, pad_l, Ho, Wo, has_bias, relu, st);
-  if (out_code == 0)
-    return launch_conv<3, bf16>(x8, w8, s, w, bi, out, B, H, W, C, F, stride,
-                                pad_t, pad_l, Ho, Wo, has_bias, relu, st);
-  return launch_conv<3, float>(x8, w8, s, w, bi, out, B, H, W, C, F, stride,
-                               pad_t, pad_l, Ho, Wo, has_bias, relu, st);
+  unsigned* partial = static_cast<unsigned*>(scratch);
+  unsigned* ticket = partial + AMAX_MAX_CTAS;
+  float* sx = reinterpret_cast<float*>(ticket + 1);
+  int8_t* q = static_cast<int8_t*>(xq);
+  const size_t n = (size_t)B * H * W * C;
+  cudaError_t e;
+  if (which & 1) {
+    const size_t n16 = n * (in_code == 0 ? 2 : 4) / 16;
+    const int blocks = grid_for(n16, AMAX_THREADS * 4, AMAX_MAX_CTAS);
+    if (in_code == 0)
+      int8_amax<bf16><<<blocks, AMAX_THREADS, 0, st>>>(
+          static_cast<const bf16*>(x), n16, partial, ticket, sx);
+    else
+      int8_amax<float><<<blocks, AMAX_THREADS, 0, st>>>(
+          static_cast<const float*>(x), n16, partial, ticket, sx);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  fuse = fuse && ks == 1 && in_code == 0;
+  if ((which & 2) && !fuse) {
+    const size_t n16 = n / 16;
+    const int blocks = grid_for(n16, 256, 65535);
+    if (in_code == 0)
+      int8_quantize<bf16><<<blocks, 256, 0, st>>>(
+          static_cast<const bf16*>(x), sx, q, n16);
+    else
+      int8_quantize<float><<<blocks, 256, 0, st>>>(
+          static_cast<const float*>(x), sx, q, n16);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (which & 4) {
+    const int8_t* w8 = static_cast<const int8_t*>(wq);
+    const float* w = static_cast<const float*>(sw);
+    const float* bi = static_cast<const float*>(bias);
+    const void* a = fuse ? x : static_cast<const void*>(q);
+    const int kind = fuse ? 0 : ks;
+    if (out_code == 0)
+      return launch_conv_bn<bf16>(bn, kind, a, w8, sx, w, bi, out, B, H, W,
+                                  C, F, stride, pad_t, pad_l, Ho, Wo,
+                                  has_bias, relu, st);
+    return launch_conv_bn<float>(bn, kind, a, w8, sx, w, bi, out, B, H, W, C,
+                                 F, stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                 relu, st);
+  }
+  return cudaSuccess;
 }

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -137,3 +137,31 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
                          f"CUDA {dtype} tensor, got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()}, "
                          f"data_ptr % 16 = {t.data_ptr() % 16})")
+
+
+class ParameterCache:
+    """What ``build`` derives from some parameters (re-laid-out or
+    quantized weights), rebuilt when any of them changes.
+
+    A parameter's version is its ``data_ptr``, autograd ``_version``,
+    device, dtype and shape: ``load_state_dict`` and in-place updates bump
+    ``_version``, and ``.to()`` gives new storage.  The cache holds the
+    storage it was built from, so a freed parameter's address cannot be
+    reused by a new one while the entry lives.
+    """
+
+    def __init__(self, build: Callable[..., Any]):
+        self.build = build
+        self._key: Optional[tuple] = None
+        self._held: tuple = ()
+        self._value: Any = None
+
+    def __call__(self, *params: torch.Tensor) -> Any:
+        key = tuple((p.data_ptr(), p._version, p.device, p.dtype,
+                     tuple(p.shape)) for p in params)
+        if key != self._key:
+            with torch.no_grad():
+                self._value = self.build(*params)
+            self._key = key
+            self._held = tuple(p.detach() for p in params)
+        return self._value

@@ -11,42 +11,64 @@ convolution, and ``float(acc) · (s_x·s_w)`` cast to the output dtype.
 Because s_x spans the batch, an image's result depends on the images that
 share its batch, as in the JAX package.
 
-For a CUDA tensor the wrapper launches kernel B6 (``csrc/int8_conv.cu``):
-one pass that quantizes x to s8, then an implicit-GEMM convolution on the
-int8 tensor cores with the dequantizing epilogue.  For a CPU tensor it
-runs ``int8_conv_plain``, which convolves the quantized integers in
-float64 (exact: every sum stays below 2⁵³) and applies the same fp32
-epilogue, so the two agree bitwise.
+The weights are quantized once per parameter version: ``prepare_weights``
+gives ``Int8Weights`` (w_q laid out ``[F, k·k·C]`` tap-major as the GEMM
+reads it, and s_w), which ``Conv(quantize=True)`` keeps and rebuilds when
+its kernel changes; ``int8_conv(..., weights=None)`` quantizes them per
+call.  For a CUDA tensor the wrapper then launches kernel B6
+(``csrc/int8_conv.cu``) three times: ``int8_amax`` (s_x on the device),
+the quantize pass, and the implicit-GEMM convolution on the int8 tensor
+cores with the dequantizing epilogue.  For a CPU tensor it runs the plain
+version, which convolves the quantized integers in float64 (exact: every
+sum stays below 2⁵³) and applies the same fp32 epilogue, so the two agree
+bitwise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
 from retinanet_tpu_torch.models.layers import same_padding
-from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
+from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("int8_conv.cu", {
-    "int8_quantize": [_P, _I, _P, _P, ctypes.c_size_t, _P],
-    "int8_conv_fwd": [_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    "int8_conv_forward": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_P],
 })
 
 # Input and output dtypes the kernels take, by the code the C side reads.
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# int8_amax's scratch, one per device and stream (launches on one stream
+# run in order, so they never share it): AMAX_MAX_CTAS per-CTA maxima, the
+# ticket word (zero between launches), then s_x.
+_AMAX_CTAS = 1024
+_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+# int8_conv_forward's launches, as bits of its ``which``.
+AMAX, QUANTIZE, GEMM = 1, 2, 4
+
+
+class Int8Weights(NamedTuple):
+    """A kernel quantized for B6: ``w_q`` int8 ``[F, kh·kw·C]`` with k
+    tap-major (dy, dx, c), ``s_w`` fp32 ``[F]``, and the OIHW ``shape`` of
+    the kernel they came from."""
+    w_q: Tensor
+    s_w: Tensor
+    shape: Tuple[int, int, int, int]
 
 
 def quantize_activations(x: Tensor) -> Tensor:
     """0-dim fp32 s_x = max(max|x|, 1e-8) / 127 over the whole tensor,
-    left on x's device (no host synchronisation)."""
+    left on x's device (no host synchronisation).  The divisor is a
+    tensor: PyTorch's CUDA division by a Python scalar multiplies by the
+    scalar's rounded reciprocal, which is not always the quotient."""
     lo, hi = torch.aminmax(x)
     amax = torch.maximum(-lo, hi).float()
-    return torch.clamp(amax, min=1e-8) / 127.0
+    return torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
 
 
 def quantize_weights(kernel: Tensor) -> Tuple[Tensor, Tensor]:
@@ -58,20 +80,30 @@ def quantize_weights(kernel: Tensor) -> Tuple[Tensor, Tensor]:
     return w_q.to(torch.int8), s_w
 
 
+def prepare_weights(kernel: Tensor) -> Int8Weights:
+    """``quantize_weights`` of an OIHW kernel, laid out as B6's GEMM reads
+    it (bitwise the same integers and scales)."""
+    f, c, kh, kw = kernel.shape
+    w_q, s_w = quantize_weights(kernel)
+    prepare_weights.builds += 1
+    return Int8Weights(w_q.permute(0, 2, 3, 1).reshape(f, kh * kw * c)
+                       .contiguous(), s_w, (f, c, kh, kw))
+
+
+prepare_weights.builds = 0
+
+
 def _quantize_plain(x: Tensor, s_x: Tensor) -> Tensor:
     return torch.clamp(torch.round(x.float() / s_x), -127, 127).to(torch.int8)
 
 
-def int8_conv_plain(x: Tensor, kernel: Tensor, strides: int = 1,
-                    out_dtype: torch.dtype = torch.bfloat16,
-                    bias: Optional[Tensor] = None,
-                    relu: bool = False) -> Tensor:
-    """Plain PyTorch version.  x [B,H,W,C] (NHWC), kernel OIHW fp32;
-    returns NHWC ``out_dtype``.  ``bias``/``relu`` follow ``int8_conv3x3``:
-    added in fp32 after the dequantization, then relu, then the cast."""
-    kh = kernel.shape[2]
+def _conv_quantized_plain(x: Tensor, w_q: Tensor, s_w: Tensor, strides: int,
+                          out_dtype: torch.dtype, bias: Optional[Tensor],
+                          relu: bool) -> Tensor:
+    """The plain convolution of quantized OIHW weights: x quantized by
+    ``quantize_activations``, integer sums in float64, fp32 epilogue."""
+    kh = w_q.shape[2]
     s_x = quantize_activations(x)
-    w_q, s_w = quantize_weights(kernel)
     x_q = _quantize_plain(x, s_x).permute(0, 3, 1, 2).double()
     top, bottom = same_padding(x.shape[1], kh, strides)
     left, right = same_padding(x.shape[2], kh, strides)
@@ -85,9 +117,87 @@ def int8_conv_plain(x: Tensor, kernel: Tensor, strides: int = 1,
     return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
 
 
+def int8_conv_plain(x: Tensor, kernel: Tensor, strides: int = 1,
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    bias: Optional[Tensor] = None,
+                    relu: bool = False) -> Tensor:
+    """Plain PyTorch version.  x [B,H,W,C] (NHWC), kernel OIHW fp32;
+    returns NHWC ``out_dtype``.  ``bias``/``relu`` follow ``int8_conv3x3``:
+    added in fp32 after the dequantization, then relu, then the cast."""
+    w_q, s_w = quantize_weights(kernel)
+    return _conv_quantized_plain(x, w_q, s_w, strides, out_dtype, bias, relu)
+
+
+def activation_scale_plain(x: Tensor) -> Tensor:
+    """Plain counterpart of ``int8_amax``'s arithmetic: the largest |x|
+    (exact in any order), then max(·, 1e-8) / 127 in fp32 with a true
+    division."""
+    amax = x.float().abs().amax()
+    return (torch.maximum(amax, torch.full_like(amax, 1e-8))
+            / torch.full_like(amax, 127.0))
+
+
+def tile_n(f: int, m: int, k: int) -> int:
+    """B6's output-channel tile for F channels, M output pixels and K
+    bytes of reduction: the widest of 256, 128, 64 that divides F and
+    leaves the grid at least half a CTA per SM (66), 256 only where K
+    exceeds two 128-byte stages (a short K gains nothing from the wider
+    tile and loses occupancy); else 64."""
+    tiles = -(-m // 128)
+    for n in (256, 128):
+        if f % n == 0 and (n < 256 or k > 256) and tiles * (f // n) >= 66:
+            return n
+    return 64
+
+
+def fuses_quantize(weights: Int8Weights, x: Tensor) -> bool:
+    """Whether B6's GEMM quantizes x as it loads it: 1×1 convs of bf16 x
+    (each x element is read once per output tile, so no x_q pass)."""
+    return weights.shape[2] == 1 and x.dtype == torch.bfloat16
+
+
+def scratch(device: torch.device) -> Tensor:
+    """This device and stream's ``int8_amax`` scratch; s_x is its last
+    word, as fp32."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(_AMAX_CTAS + 2, dtype=torch.int32,
+                                    device=device)
+    return _SCRATCH[key]
+
+
+def launch(x: Tensor, x_q: Optional[Tensor], work: Tensor,
+           weights: Int8Weights, out: Tensor, strides: int,
+           bias: Optional[Tensor] = None, relu: bool = False,
+           which: int = AMAX | QUANTIZE | GEMM, bn: Optional[int] = None,
+           fuse: Optional[bool] = None) -> None:
+    """B6's launches on x [B,H,W,C] into out [B,Ho,Wo,F] (bf16 or fp32),
+    with x_q (int8, x's shape; None when the GEMM quantizes) and ``work``
+    (``scratch``) as scratch; ``bias`` contiguous fp32 or None.  ``which``
+    picks the launches (the GEMM alone reads the x_q and s_x a previous
+    call left), ``bn`` the tile (default ``tile_n``), ``fuse`` whether the
+    GEMM quantizes x itself (default ``fuses_quantize``)."""
+    bsz, h, w, c = x.shape
+    f, _, k, _ = weights.shape
+    ho, wo = out.shape[1], out.shape[2]
+    top, _ = same_padding(h, k, strides)
+    left, _ = same_padding(w, k, strides)
+    LIB.call("int8_conv_forward", x.data_ptr(), _DTYPE_CODES[x.dtype],
+             None if x_q is None else x_q.data_ptr(), work.data_ptr(),
+             weights.w_q.data_ptr(),
+             weights.s_w.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             bsz, h, w, c, f, k, strides, top, left, ho, wo,
+             _DTYPE_CODES[out.dtype], int(bias is not None), int(relu),
+             bn or tile_n(f, bsz * ho * wo, k * k * c), which,
+             int(fuses_quantize(weights, x) if fuse is None else fuse),
+             torch.cuda.current_stream(x.device).cuda_stream)
+
+
 def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
                     out_dtype: torch.dtype, bias: Optional[Tensor],
-                    relu: bool) -> Tensor:
+                    relu: bool,
+                    weights: Optional[Int8Weights] = None) -> Tensor:
     bsz, h, w, c = x.shape
     f, cin, kh, kw = kernel.shape
     if cin != c or kh != kw or kh not in (1, 3) or strides not in (1, 2):
@@ -106,37 +216,41 @@ def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
     if bias is not None and bias.numel() != f:
         raise ValueError(f"bias needs {f} elements, got {bias.numel()}")
     check_cuda(x, "x", x.dtype)
-    s_x = quantize_activations(x)
-    w_q, s_w = quantize_weights(kernel)
-    w_q = w_q.permute(0, 2, 3, 1).reshape(f, kh * kw * c).contiguous()
+    if weights is None:
+        weights = prepare_weights(kernel)
+    if tuple(weights.shape) != tuple(kernel.shape):
+        raise ValueError(f"prepared weights of shape {weights.shape} do not "
+                         f"fit kernel {tuple(kernel.shape)}")
+    check_cuda(weights.w_q, "w_q", torch.int8)
+    check_cuda(weights.s_w, "s_w", torch.float32)
     bias32 = bias.float().contiguous() if bias is not None else None
-    top, _ = same_padding(h, kh, strides)
-    left, _ = same_padding(w, kh, strides)
     ho, wo = -(-h // strides), -(-w // strides)
-    x_q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    x_q = (None if fuses_quantize(weights, x) else
+           torch.empty(x.shape, dtype=torch.int8, device=x.device))
     out = torch.empty(bsz, ho, wo, f, dtype=out_dtype, device=x.device)
-    stream = stream_ptr(x.device)
-    LIB.call("int8_quantize", x.data_ptr(), _DTYPE_CODES[x.dtype],
-             s_x.data_ptr(), x_q.data_ptr(), x.numel(), stream)
-    LIB.call("int8_conv_fwd", x_q.data_ptr(), w_q.data_ptr(),
-             s_x.data_ptr(), s_w.data_ptr(),
-             None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
-             bsz, h, w, c, f, kh, strides, top, left, ho, wo,
-             _DTYPE_CODES[out_dtype], int(bias is not None), int(relu), stream)
+    launch(x, x_q, scratch(x.device), weights, out, strides, bias32, relu)
     int8_conv.launches += 1
     return out
 
 
 def int8_conv(x: Tensor, kernel: Tensor, strides: int = 1,
-              out_dtype: Optional[torch.dtype] = None) -> Tensor:
+              out_dtype: Optional[torch.dtype] = None,
+              weights: Optional[Int8Weights] = None) -> Tensor:
     """``_int8_conv`` of the JAX package: x [B,H,W,C] (NHWC, bf16 or fp32),
     kernel OIHW fp32 (as the port stores it), k ∈ {1, 3}, stride ∈ {1, 2},
-    TF-SAME.  Returns NHWC in ``out_dtype`` (default x's).  On CUDA, C and
-    F must be multiples of 64."""
+    TF-SAME.  Returns NHWC in ``out_dtype`` (default x's).  ``weights``:
+    the kernel's ``prepare_weights``, kept by the caller; without it the
+    kernel is quantized here.  On CUDA, C and F must be multiples of 64."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if not x.is_cuda:
-        return int8_conv_plain(x, kernel, strides, out_dtype)
-    return _int8_conv_cuda(x, kernel, strides, out_dtype, None, False)
+        if weights is None:
+            return int8_conv_plain(x, kernel, strides, out_dtype)
+        f, c, kh, kw = weights.shape
+        w_q = weights.w_q.view(f, kh, kw, c).permute(0, 3, 1, 2)
+        return _conv_quantized_plain(x, w_q, weights.s_w, strides, out_dtype,
+                                     None, False)
+    return _int8_conv_cuda(x, kernel, strides, out_dtype, None, False,
+                           weights)
 
 
 int8_conv.launches = 0

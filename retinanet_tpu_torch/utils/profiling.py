@@ -56,6 +56,26 @@ def _union_us(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
+def kernel_launches(call: Callable[[], None], calls: int = CALLS
+                    ) -> Dict[str, Tuple[float, float]]:
+    """{kernel name: (launches, device ms)} per call, over ``calls``
+    synchronised calls of ``call`` after a warm one."""
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    by_name: Dict[str, Tuple[float, float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0.0, 0.0))
+            by_name[e.name] = (n + 1.0 / calls, ms + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls)
+    return by_name
+
+
 def device_breakdown(call: Callable[[], None]) -> Dict[str, object]:
     """Profile ``CALLS`` synchronised calls of ``call`` after a warm one:
     wall ms per call (host clock), device busy ms per call (the union of

@@ -108,3 +108,30 @@ def test_every_port_module_imports_without_the_jax_package():
     proc = _run(_WALK)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_kernel_argtypes_match_the_c_signatures():
+    """Each exported C function of ``ops/csrc`` takes as many parameters
+    as its ``KernelLibrary`` passes (a missing ``argtypes`` entry shifts
+    every later argument), and a pointer (``void*``) exactly where the
+    wrapper passes ``c_void_p``.  Read from the sources: no card needed."""
+    import ctypes
+    import re
+
+    from retinanet_tpu_torch.ops import (bottleneck, bottleneck_bwd,
+                                         groupnorm, int8_conv, nms, stem)
+    libs = (bottleneck.LIB, bottleneck.PROJ_LIB, bottleneck_bwd.LIB,
+            groupnorm.LIB, int8_conv.LIB, nms.LIB, stem.LIB)
+    checked = 0
+    for lib in libs:
+        text = lib.source.read_text()
+        for name, argtypes in lib.functions.items():
+            m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+            assert m, (lib.source.name, name)
+            params = [p.strip() for p in m.group(1).split(",")]
+            assert len(params) == len(argtypes), (name, len(params),
+                                                  len(argtypes))
+            for p, t in zip(params, argtypes):
+                assert ("*" in p) == (t is ctypes.c_void_p), (name, p, t)
+            checked += 1
+    assert checked >= 7

@@ -20,19 +20,26 @@ from retinanet_tpu.models.layers import _int8_conv
 from retinanet_tpu.models.resnet import ResNetBottleneck as JaxBottleneck
 from retinanet_tpu.ops.pallas.int8_conv import int8_conv3x3 as jax_conv3x3
 from retinanet_tpu_torch.export import params_from_flax
+from retinanet_tpu_torch.models.layers import Conv
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
-from retinanet_tpu_torch.ops.int8_conv import (int8_conv, int8_conv3x3,
-                                               int8_conv_plain)
+from retinanet_tpu_torch.ops.int8_conv import (activation_scale_plain,
+                                               int8_conv, int8_conv3x3,
+                                               int8_conv_plain,
+                                               prepare_weights,
+                                               quantize_activations)
 
 torch.set_num_threads(2)
 
 
+@pytest.mark.parametrize("prepared", [False, True])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hw", [(16, 12), (9, 7)])
 @pytest.mark.parametrize("k,s", [(1, 1), (1, 2), (3, 1), (3, 2)])
-def test_int8_conv_matches_jax(k, s, hw, dtype):
+def test_int8_conv_matches_jax(k, s, hw, dtype, prepared):
     """Every window and stride of the model path, even and odd sides (TF
-    SAME pads stride 2 asymmetrically), output in x's dtype: bitwise."""
+    SAME pads stride 2 asymmetrically), output in x's dtype: bitwise,
+    with the weights quantized in the call or prepared once (the tap-major
+    layout the GEMM reads)."""
     rng = np.random.RandomState(k * 10 + s)
     x = (rng.randn(2, *hw, 16) * 2).astype(np.float32)
     if dtype == "bfloat16":
@@ -41,7 +48,9 @@ def test_int8_conv_matches_jax(k, s, hw, dtype):
     want = np.asarray(_int8_conv(jnp.asarray(x), jnp.asarray(kern), (s, s),
                                  "SAME", 1, getattr(jnp, dtype)), np.float32)
     xt = torch.from_numpy(x.astype(np.float32)).to(getattr(torch, dtype))
-    got = int8_conv(xt, torch.from_numpy(kern).permute(3, 2, 0, 1), s)
+    kernel = torch.from_numpy(kern).permute(3, 2, 0, 1)
+    weights = prepare_weights(kernel) if prepared else None
+    got = int8_conv(xt, kernel, s, weights=weights)
     assert got.dtype == xt.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got.float().numpy(), want)
     assert int8_conv.launches == 0  # CPU tensors take the plain version
@@ -108,3 +117,69 @@ def test_int8_blocks_match_jax(project, cin, hw):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert np.abs(floats - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_device_scale_formula_matches_quantize_activations(dtype):
+    """``int8_amax``'s arithmetic (the largest |x| by bit pattern, then
+    max(·, 1e-8) / 127 with a true division), written plainly, equals
+    ``quantize_activations`` bitwise, and both equal numpy's float32
+    quotient: over 200 seeded tensors whose scales span 1e-12..1e4,
+    negative-dominant ones, and all-zero ones (the 1e-8 floor)."""
+    rng = np.random.RandomState(7)
+    cases = [rng.randn(64, 8) * 10.0 ** rng.uniform(-12, 4)
+             for _ in range(200)]
+    cases += [-np.abs(rng.randn(3, 16)) * 37.0, np.zeros((4, 16))]
+    for a in cases:
+        x = torch.from_numpy(a.astype(np.float32)).to(dtype)
+        want = quantize_activations(x)
+        got = activation_scale_plain(x)
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got, want), (got.item(), want.item())
+        amax = np.float32(np.abs(x.float().numpy()).max())
+        exact = np.maximum(amax, np.float32(1e-8)) / np.float32(127.0)
+        assert want.item() == float(exact)
+
+
+def _conv_and_input(seed: int):
+    rng = np.random.RandomState(seed)
+    conv = Conv(16, 32, kernel_size=3, strides=1, quantize=True)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.from_numpy(
+            (rng.randn(32, 16, 3, 3) * 0.2).astype(np.float32)))
+    x = torch.from_numpy(rng.randn(2, 16, 9, 7).astype(np.float32))
+    return conv, x
+
+
+def _plain_of(conv: Conv, x: torch.Tensor) -> torch.Tensor:
+    return int8_conv_plain(x.permute(0, 2, 3, 1), conv.kernel.detach(), 1,
+                           x.dtype).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "mul_", "to"])
+def test_conv_keeps_weights_per_parameter_version(change):
+    """``Conv(quantize=True)`` quantizes its kernel once and serves the
+    prepared weights until the kernel changes: ``load_state_dict``, an
+    in-place ``mul_`` and ``.to()`` (to bf16, which rounds the kernel,
+    so stale weights would show) each rebuild them, and the output equals
+    the plain version of the kernel as it now stands, bitwise."""
+    conv, x = _conv_and_input(11)
+    with torch.no_grad():
+        first = conv(x)
+        builds = prepare_weights.builds
+        again = conv(x)
+    assert prepare_weights.builds == builds  # served from the cache
+    assert torch.equal(first, again) and torch.equal(first, _plain_of(conv, x))
+    other, _ = _conv_and_input(12)
+    with torch.no_grad():
+        if change == "load_state_dict":
+            conv.load_state_dict(other.state_dict())
+        elif change == "mul_":
+            conv.kernel.mul_(-0.5)
+        else:
+            conv.to(torch.bfloat16)
+            x = x.to(torch.bfloat16)
+        got = conv(x)
+    assert prepare_weights.builds == builds + 1
+    assert not torch.equal(got.float(), first.float())
+    assert torch.equal(got, _plain_of(conv, x))
