@@ -39,8 +39,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    bitwise; each bitwise repeatable;
 9. int8 serving: the flagship with ``quantize="int8"`` (and the fused
    flags, which the int8 gate ignores) through ``Detector`` at batch 8:
-   59 B6 launches and no B1/B5, heads vs the int8 plain path; then B6 at
-   every distinct int8 conv shape that run gave, bitwise;
+   59 B6 launches and no B1/B5; a second forward profiled: three B6
+   kernels per conv and no weight quantized again; heads vs the int8
+   plain path; then B6 at every distinct int8 conv shape that run gave,
+   bitwise, with weights quantized in the call and prepared;
 10. ``fused_proj`` serving: 12 B1 + 1 B5 launches per forward, heads vs
    the unfused plain path;
 11. entry points: ``GroupNorm(use_kernel=True)`` on the P3/P4 head
@@ -53,14 +55,23 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    at batch 8 and 32; each kernel vs its plain version (and a PyTorch
    call computing the same function, where one exists) at the paths'
    shapes (CUDA events after warmup), with its bound at the card's
-   published peaks;
+   published peaks.  B3 also by launch group (``B3_GROUPS``) and kernel
+   from a profile, at batch 8 and at batch 32 on res2; B6 per conv shape
+   three ways (the whole conv with prepared weights; its launches, and
+   its GEMM alone, queued behind a sleep kernel so that only device time
+   counts, beside ``torch._int_mm`` on the same quantized operands), and
+   the GEMM at each output tile;
 13. breakdown: ``torch.profiler`` device time by kernel group, idle share
    and kernels per call: serving at batch 8 and 128 (kernel, int8 and
    plain paths) and training at batch 8 and 32 (``utils/profiling.py``).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,
 entry,serving,training,timing,breakdown``) and prints no result lines:
-for a first call after a kernel change.
+for a first call after a kernel change.  ``--phases parent`` (not in the
+default run) compares B3's recomputed forward and B6 with a parent
+commit's: put that commit's ``ops/bottleneck_bwd.py``, ``ops/int8_conv.py``
+and ``ops/csrc/{bottleneck_bwd.cu,bottleneck_common.cuh,int8_conv.cu}`` in
+``parent_kernels/`` (git-ignored) first.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -185,6 +196,9 @@ B4_SHAPES = (("P3", 80, 80, 256, "elu"), ("P4", 40, 40, 256, "elu"),
 RES2_B0 = (160, 160, 64, 256, 64)
 # The stem conv's output at 640 px: H, W, C.
 STEM = (320, 320, 64)
+# Clock cycles of the sleep kernel ahead of a queued timing (~5 ms), more
+# than the host takes to enqueue the timed calls.
+QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "entry", "serving", "training",
           "timing", "breakdown")
 # Run only when asked for (``--phases parent``): the parent commit's B3 and
@@ -208,12 +222,19 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2,
+                 queued: bool = False) -> float:
+    """ms per call of ``fn`` between CUDA events after ``warmup`` calls.
+    ``queued`` first occupies the card with a sleep kernel, so that all
+    ``iters`` calls are enqueued before the start event runs: the device
+    time of the calls, without the host's launch cost between them."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -562,14 +583,16 @@ def check_int8_serving(device):
     builds = b6.prepare_weights.builds
     by_name = kernel_launches(lambda: detector(images), calls=1)
     b6_kernels = {}
-    for name, (n, _) in by_name.items():
+    for name, (n, ms) in by_name.items():
         if "b6_int8_conv" in name:
-            short = name.split("b6_int8_conv::")[-1].split("<")[0]
-            b6_kernels[short] = b6_kernels.get(short, 0) + n
-    per_b6 = sum(b6_kernels.values())
+            short = name.split("b6_int8_conv::", 1)[1].split("<")[0]
+            total = b6_kernels.get(short, (0.0, 0.0))
+            b6_kernels[short] = (total[0] + n, total[1] + ms)
+    per_b6 = sum(n for n, _ in b6_kernels.values())
     log("int8-kernels",
         kernels_per_forward=sum(n for n, _ in by_name.values()),
-        b6_kernels_per_forward=b6_kernels, b6_kernels_per_conv=per_b6 / 59,
+        b6_launches_and_device_ms=b6_kernels,
+        b6_kernels_per_conv=per_b6 / 59,
         weight_builds_while_serving=b6.prepare_weights.builds - builds)
     if b6.prepare_weights.builds != builds or per_b6 > 3 * 59:
         raise AssertionError(f"int8 serving quantized weights "
@@ -601,24 +624,17 @@ def int8_case(key, gen, device):
 
 def check_b6(device, shapes) -> float:
     """B6 vs its plain version at every distinct int8 conv shape of the
-    640-px flagship at batch 8, a 1×1 conv through both A producers
-    (quantizing as it loads, and after the quantize pass): bitwise equal
-    and repeatable."""
+    640-px flagship at batch 8: bitwise equal and repeatable."""
     gen = torch.Generator().manual_seed(9)
     for key, count in sorted(shapes.items()):
         x, kernel = int8_case(key, gen, device)
         s = key[-1]
         ref = b6.int8_conv_plain(x, kernel, s, torch.bfloat16)
         out = b6.int8_conv(x, kernel, s)
-        wts = b6.prepare_weights(kernel)
-        again = b6.int8_conv(x, kernel, s, weights=wts)
-        # The other A producer: 1×1 convs also through the quantize pass.
-        other = torch.empty_like(out)
-        b6.launch(x, torch.empty(x.shape, dtype=torch.int8, device=device),
-                  b6.scratch(device), wts, other, s,
-                  fuse=not b6.fuses_quantize(wts, x))
+        again = b6.int8_conv(x, kernel, s,
+                             weights=b6.prepare_weights(kernel))
         torch.cuda.synchronize()
-        equal = bool(torch.equal(out, ref)) and bool(torch.equal(other, ref))
+        equal = bool(torch.equal(out, ref))
         log("b6-check", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
             convs_per_forward=count, out=list(out.shape),
             tile_n=b6.tile_n(key[4], out.shape[0] * out.shape[1]
@@ -629,7 +645,7 @@ def check_b6(device, shapes) -> float:
         if not equal or not torch.equal(out, again):
             raise AssertionError(f"B6 differs from its plain version at "
                                  f"{key}")
-        del x, kernel, ref, out, again, other
+        del x, kernel, ref, out, again
     # The JAX entry point, with bias and relu, at a head conv's shape.
     x, kernel = int8_case((8, 80, 80, 256, 256, 3, 1), gen, device)
     w = kernel.permute(2, 3, 1, 0)
@@ -1028,16 +1044,19 @@ def nms_bound(batch, n):
 
 
 def b3_groups(call):
-    """B3's device ms and launches per call by launch group (B3_GROUPS)."""
-    split = {}
+    """B3's launches and device ms per call by launch group (B3_GROUPS),
+    and by kernel (name without its namespace and arguments)."""
+    split, kernels = {}, {}
     for name, (n, ms) in kernel_launches(call).items():
         if "b3_fused_bottleneck_bwd" not in name:
             continue
         group = next((g for g, keys in B3_GROUPS
                       if any(k in name for k in keys)), "other")
-        total = split.get(group, (0.0, 0.0))
-        split[group] = (total[0] + n, total[1] + ms)
-    return split
+        short = name.split("b3_fused_bottleneck_bwd::", 1)[1].split("(")[0]
+        for table, key in ((split, group), (kernels, short)):
+            total = table.get(key, (0.0, 0.0))
+            table[key] = (total[0] + n, total[1] + ms)
+    return split, kernels
 
 
 def time_kernels(device):
@@ -1069,9 +1088,10 @@ def time_kernels(device):
             t["plain_ms"] += count * p_ms
             t["bound_ms"] += count * bound
             t["t_op"] += count * (bound if by == "operations" else 0.0)
-        split = b3_groups(lambda: b3.fused_bottleneck_bwd(
+        split, kernels = b3_groups(lambda: b3.fused_bottleneck_bwd(
             x, dout, *params, weights=wts))
-        log("b3-split", stage=name, batch=8, device_ms=split)
+        log("b3-split", stage=name, batch=8, launches_and_ms=split,
+            by_kernel=kernels)
         for g, (n, ms) in split.items():
             total = groups.get(g, (0.0, 0.0))
             groups[g] = (total[0] + count * n, total[1] + count * ms)
@@ -1093,7 +1113,8 @@ def time_kernels(device):
     k_ms = cuda_time_ms(call, 5)
     bound, by = block_bound(32, h, w, c, f, 3)
     log("b3-time", stage=name, batch=32, kernel_ms=k_ms, bound_ms=bound,
-        bound_by=by, blocks_per_step=count, device_ms=b3_groups(call))
+        bound_by=by, blocks_per_step=count,
+        launches_and_ms=b3_groups(call)[0])
     del x, params, dout, wts
     for shape in ((8, 1000), (1, 1000)):
         boxes = clustered_boxes(*shape, gen).to(device)
@@ -1129,7 +1150,8 @@ def int_mm_ms(x_q, weights):
     a = x_q.reshape(-1, c)
     w_q = weights.w_q.view(f, c)
     try:
-        return cuda_time_ms(lambda: torch._int_mm(a, w_q.t()), 10)
+        return cuda_time_ms(lambda: torch._int_mm(a, w_q.t()), 10,
+                            queued=True)
     except RuntimeError as err:
         log("b6-library", error=str(err).splitlines()[0])
         return None
@@ -1137,21 +1159,17 @@ def int_mm_ms(x_q, weights):
 
 def time_b6(device, int8_shapes, gen):
     """B6 at every int8 conv shape of the flagship at batch 8, three ways:
-    the whole conv through the wrapper with prepared weights (``ms``), its
-    launches alone on preallocated buffers (``launches_ms``), and the GEMM
-    launch alone (``gemm_ms``); for the 1×1 convs, whose GEMM quantizes x
-    as it loads it, the same without that fusion (``*_unfused``), and
-    ``torch._int_mm`` beside the unfused GEMM on the same quantized
-    operands for the 1×1 stride-1 convs; the GEMM at each output tile; the
-    plain version; kernels per conv from a profile.  Summed over the 59
-    convs."""
+    the whole conv through the wrapper with prepared weights, host work
+    included (``ms``), and, queued behind a sleep kernel so that only the
+    device's time counts, its three launches alone on preallocated
+    buffers (``launches_ms``) and the GEMM launch alone (``gemm_ms``),
+    with ``torch._int_mm`` beside the GEMM on the same quantized operands
+    for the 1×1 stride-1 convs (queued too); the GEMM at each output tile;
+    the plain version.  Summed over the 59 convs (``check_int8_serving``
+    counts the kernels per conv)."""
     t = dict(ms=0.0, launches_ms=0.0, gemm_ms=0.0, plain_ms=0.0,
              bound_ms=0.0, t_op=0.0)
-    one = dict(convs_1x1=0, launches_ms_fused_1x1=0.0,
-               launches_ms_unfused_1x1=0.0, gemm_ms_fused_1x1=0.0,
-               gemm_ms_unfused_1x1=0.0)
     lib = dict(library_ms=0.0, gemm_ms_library_scope=0.0, library_convs=0)
-    per_conv = set()
     for key, count in sorted(int8_shapes.items()):
         b, h, w, c, f, k, s = key
         x, kernel = int8_case(key, gen, device)
@@ -1159,46 +1177,30 @@ def time_b6(device, int8_shapes, gen):
         ho, wo = -(-h // s), -(-w // s)
         x_q = torch.empty(x.shape, dtype=torch.int8, device=device)
         out = torch.empty(b, ho, wo, f, dtype=torch.bfloat16, device=device)
-        work = b6.scratch(device)
-        fused = b6.fuses_quantize(wts, x)
+        work = b6.scratch(device)[0]
 
-        def run(which=b6.AMAX | b6.QUANTIZE | b6.GEMM, **kw):
+        def run(which=b6.AMAX | b6.QUANTIZE | b6.GEMM, bn=None):
             return lambda: b6.launch(x, x_q, work, wts, out, s, which=which,
-                                     **kw)
+                                     bn=bn)
 
-        run(fuse=False)()  # x_q and s_x for the GEMM-alone runs
         k_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s, weights=wts),
                             10)
-        l_ms = cuda_time_ms(run(), 10)
-        tiles = {bn: cuda_time_ms(run(b6.GEMM, bn=bn), 10)
+        # leaves x_q and s_x for the GEMM alone
+        l_ms = cuda_time_ms(run(), 10, queued=True)
+        tiles = {bn: cuda_time_ms(run(b6.GEMM, bn), 10, queued=True)
                  for bn in (64, 128, 256) if f % bn == 0}
         g_ms = tiles[b6.tile_n(f, b * ho * wo, k * k * c)]
-        unfused = {}
-        if fused:
-            unfused = dict(launches_ms_unfused=cuda_time_ms(
-                run(fuse=False), 10), gemm_ms_unfused=cuda_time_ms(
-                run(b6.GEMM, fuse=False), 10))
-            one["convs_1x1"] += count
-            one["launches_ms_fused_1x1"] += count * l_ms
-            one["launches_ms_unfused_1x1"] += (
-                count * unfused["launches_ms_unfused"])
-            one["gemm_ms_fused_1x1"] += count * g_ms
-            one["gemm_ms_unfused_1x1"] += count * unfused["gemm_ms_unfused"]
         p_ms = cuda_time_ms(lambda: b6.int8_conv_plain(
             x, kernel, s, torch.bfloat16), 2, warmup=1)
-        n_kernels = sum(n for n, _ in kernel_launches(
-            lambda: b6.int8_conv(x, kernel, s, weights=wts), 1).values())
-        per_conv.add(n_kernels)
         ms, by = bound(2 * b * ho * wo * k * k * c * f,
                        (b * h * w * c + b * ho * wo * f) * 2
                        + k * k * c * f * 4, PEAK_INT8)
         i_ms = int_mm_ms(x_q, wts) if (k, s) == (1, 1) else None
         log("b6-time", shape=[b, h, w, c], F=f, k=k, stride=s,
             tile_n=b6.tile_n(f, b * ho * wo, k * k * c),
-            fuses_quantize=fused, convs_per_forward=count, conv_ms=k_ms,
-            launches_ms=l_ms, gemm_ms=g_ms, **unfused,
-            gemm_ms_by_tile=tiles, int_mm_ms=i_ms, plain_ms=p_ms,
-            bound_ms=ms, bound_by=by, kernels_per_conv=n_kernels)
+            convs_per_forward=count, conv_ms=k_ms, launches_ms=l_ms,
+            gemm_ms=g_ms, gemm_ms_by_tile=tiles, int_mm_ms=i_ms,
+            plain_ms=p_ms, bound_ms=ms, bound_by=by)
         for name, v in (("ms", k_ms), ("launches_ms", l_ms),
                         ("gemm_ms", g_ms), ("plain_ms", p_ms),
                         ("bound_ms", ms)):
@@ -1206,18 +1208,14 @@ def time_b6(device, int8_shapes, gen):
         t["t_op"] += count * (ms if by == "operations" else 0.0)
         if i_ms is not None:
             lib["library_ms"] += count * i_ms
-            lib["gemm_ms_library_scope"] += (
-                count * unfused["gemm_ms_unfused"])
+            lib["gemm_ms_library_scope"] += count * g_ms
             lib["library_convs"] += count
         del x, kernel, wts, x_q, out
     t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
                      else "bytes")
     if not lib["library_convs"]:
         lib["library_ms"] = None
-    log("b6-time-total", **t, **lib, **one,
-        kernels_per_conv=sorted(per_conv))
-    if max(per_conv) > 3:
-        raise AssertionError(f"an int8 conv launched {max(per_conv)} kernels")
+    log("b6-time-total", **t, **lib)
     return dict(t, **lib)
 
 

@@ -295,9 +295,11 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
         raise ValueError(f"kernel shapes {tuple(k1.shape)}, "
                          f"{tuple(k2.shape)}, {tuple(k3.shape)} do not fit "
                          f"x {tuple(x.shape)}")
-    if c % 64 or f % 64:
+    if c % 64 or f % 64 or 64 % (c // resolve_groups(c)) or 64 % (
+            f // resolve_groups(f)):
         raise ValueError(f"the CUDA bottleneck backward needs C and F "
-                         f"divisible by 64, got C={c}, F={f}")
+                         f"divisible by 64 and GN groups whose width "
+                         f"divides 64, got C={c}, F={f}")
     if dout.shape != x.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match x "
                          f"{tuple(x.shape)}")
@@ -355,8 +357,9 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
              w2r.data_ptr(), gb[2].data_ptr(), gb[3].data_ptr(),
              w3.data_ptr(), w3t.data_ptr(), gb[4].data_ptr(),
              gb[5].data_ptr(), y1.data_ptr(), y2.data_ptr(), y3.data_ptr(),
-             planes.data_ptr(), part.data_ptr(), ss.data_ptr(), mv.data_ptr(), dn3.data_ptr(),
-             dn21.data_ptr(), dyb.data_ptr(), tt.data_ptr(), gimg.data_ptr(),
+             planes.data_ptr(), part.data_ptr(), ss.data_ptr(),
+             mv.data_ptr(), dn3.data_ptr(), dn21.data_ptr(), dyb.data_ptr(),
+             tt.data_ptr(), gimg.data_ptr(),
              wpart.data_ptr(), dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(),
              dk3.data_ptr(), *(t.data_ptr() for t in dgb),
              bsz, h, w, c, f, resolve_groups(f), resolve_groups(c),

@@ -31,7 +31,8 @@
 //          and a2 = bf16(relu(GN2 affine(y2))) once, the value the wgrad
 //          prologue used to recompute for every tap.
 //   P4     elementwise output mask -> dn3, per-CTA (sum d, sum d*yhat)
-//   GN3    fixed-order finalize -> t1, t2, per-image dgamma3/dbeta3; dy3
+//   GN3    fixed-order finalize (one CTA per image and 64 channels) -> t1,
+//          t2, per-image dgamma3/dbeta3; dy3
 //   P5     dgrad_gemm dy3.k3^T with a mask epilogue (GN2 affine > 0) -> dn2
 //          and GN2 partials; wgrad dk3 = dy3^T . a2
 //   GN2    finalize; dy2
@@ -43,20 +44,24 @@
 // 24 launches per block.
 //
 // The GEMMs.  dgrad_gemm runs hopper_gemm.cuh's implicit-GEMM mainloop: 128
-// x BN tiles of one image (BN = 128, or 64 for the 64-wide res2), four
-// cp.async stages of 64 K values in the 128-byte swizzle, zero-filled
-// outside the image, and bf16 wgmma m64nBNk16 on two warpgroups, fp32
-// accumulation.  Its epilogue's per-column GN partials fit wgmma's
-// accumulator layout (each thread holds rows g and g + 8 of its warp's 16
-// for columns 8j + 2t, 8j + 2t + 1: a shuffle over g, then the 8 warps in
-// order through shared memory), so wgmma is used for every dgrad.
+// x BN tiles of one image (BN = 128, or 64 for the 64-wide res2), a ring
+// of three cp.async stages of 64 K values in the 128-byte swizzle,
+// zero-filled outside the image, and bf16 wgmma m64nBNk16 on two
+// warpgroups, fp32 accumulation.  The epilogue rounds the accumulators
+// into a shared-memory tile and re-reads it by rows, 8 columns a thread:
+// 16-byte loads of the forward plane (mask) or the residual, 16-byte
+// stores, and the per-column GN partials summed over row groups in order.
+// wgmma's accumulator layout (rows g and g + 8 of each warp's 16, columns
+// 8j + 2t and 8j + 2t + 1) thus never meets the epilogue, and every dgrad
+// runs on wgmma.
 // wgrad_gemm computes part[s, tap, i, j] = sum_r P[r, i] * Q_tap[r, j] over
 // the rows r of K-slice s: both operands are MN-major (pixels by channels),
 // staged as they lie with 16-byte cp.async copies in four stages of 32 rows
 // (padded rows, conflict-free), read by ldmatrix.x4.trans into mma.sync
 // m16n8k16 fragments, 128 x 128 tiles (64 where a dimension is 64) of
-// 32 x 32 warp tiles.  wgmma's transposed (MN-major) descriptors would
-// serve here too; this PR keeps the well-trodden ldmatrix path for them.
+// (BI/2) x 32 warp tiles.  wgmma's transposed (MN-major) descriptors would
+// serve here too; the ldmatrix path is kept for them as the one already
+// proven on the card.
 // Weight gradients have K = B*H*W rows: K is cut into a fixed number of
 // slices, each CTA writes an fp32 partial, and reduce_slices sums the
 // slices in order; dgamma/dbeta are summed over images in order.  No float
@@ -133,53 +138,56 @@ __global__ void __launch_bounds__(256) out_mask_bwd(
   }
 }
 
-// One block per image: reduce the partials (sum d, sum d*yhat) in a fixed
-// order; write the per-image dgamma = sum d*yhat and dbeta = sum d, and the
-// per-channel group terms t1, t2 of the GN backward.
-__global__ void gn_bwd_finalize(const float* __restrict__ part, int MT, int N,
-                                int groups, int hw,
-                                const float* __restrict__ gamma,
-                                float* __restrict__ t1, float* __restrict__ t2,
-                                float* __restrict__ dgam_img,
-                                float* __restrict__ dbet_img) {
-  extern __shared__ float sm[];
-  float* ch = sm;              // [2, N]
-  float* gm = sm + 2 * N;      // [2, groups]
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    float sb = 0.f, sg = 0.f;
-    for (int m = 0; m < MT; ++m) {
-      const float* pm = part + ((size_t)b * MT + m) * 2 * N;
-      sb += pm[c];
-      sg += pm[N + c];
-    }
-    ch[c] = sb;
-    ch[N + c] = sg;
+// GN backward terms of one image and 64 channels per block (groups do not
+// straddle blocks: the wrapper checks that C/G divides 64): reduce the
+// per-tile partials (sum d, sum d*yhat) in a fixed order, four row
+// partitions per channel summed in order; write the per-image dgamma =
+// sum d*yhat and dbeta = sum d, and the per-channel group terms t1, t2.
+__global__ void __launch_bounds__(256) gn_bwd_finalize(
+    const float* __restrict__ part, int MT, int N, int groups, int hw,
+    const float* __restrict__ gamma, float* __restrict__ t1,
+    float* __restrict__ t2, float* __restrict__ dgam_img,
+    float* __restrict__ dbet_img) {
+  __shared__ float red[2][4][64];
+  __shared__ float ch[2][64];
+  const int b = blockIdx.y, c0 = blockIdx.x * 64;
+  const int lc = threadIdx.x & 63, rp = threadIdx.x >> 6;
+  const int c = c0 + lc;
+  float sb = 0.f, sg = 0.f;
+  for (int m = rp; m < MT; m += 4) {
+    const float* pm = part + ((size_t)b * MT + m) * 2 * N;
+    sb += pm[c];
+    sg += pm[N + c];
+  }
+  red[0][rp][lc] = sb;
+  red[1][rp][lc] = sg;
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    sb = ((red[0][0][lc] + red[0][1][lc]) + red[0][2][lc]) + red[0][3][lc];
+    sg = ((red[1][0][lc] + red[1][1][lc]) + red[1][2][lc]) + red[1][3][lc];
     dbet_img[(size_t)b * N + c] = sb;
     dgam_img[(size_t)b * N + c] = sg;
+    ch[0][lc] = gamma[c] * sb;
+    ch[1][lc] = gamma[c] * sg;
   }
   __syncthreads();
-  const int cg = N / groups;
-  const float n = (float)(hw * cg);
-  for (int gi = threadIdx.x; gi < groups; gi += blockDim.x) {
+  if (threadIdx.x < 64) {
+    const int cg = N / groups;
+    const int g0 = lc / cg * cg;
+    const float n = (float)(hw * cg);
     float a1 = 0.f, a2 = 0.f;
     for (int j = 0; j < cg; ++j) {
-      const int c = gi * cg + j;
-      a1 += gamma[c] * ch[c];
-      a2 += gamma[c] * ch[N + c];
+      a1 += ch[0][g0 + j];
+      a2 += ch[1][g0 + j];
     }
-    gm[gi] = a1 / n;
-    gm[groups + gi] = a2 / n;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    t1[(size_t)b * N + c] = gm[c / cg];
-    t2[(size_t)b * N + c] = gm[groups + c / cg];
+    t1[(size_t)b * N + c] = a1 / n;
+    t2[(size_t)b * N + c] = a2 / n;
   }
 }
 
 // dy = bf16(inv * ((gamma*d - t1) - yhat*t2)), yhat = (y - mean) * inv, over
-// [B, HW, N] bf16 planes, eight channels per thread.
+// [B, HW, N] bf16 planes, eight channels per thread; the per-channel terms
+// load as float4 pairs.
 __global__ void gn_bwd_dy(const bf16* __restrict__ dn, const bf16* __restrict__ y,
                           const float* __restrict__ gamma,
                           const float* __restrict__ mean,
@@ -192,18 +200,28 @@ __global__ void gn_bwd_dy(const bf16* __restrict__ dn, const bf16* __restrict__ 
     const size_t e = i * 8;
     const size_t b = e / ((size_t)HW * N);
     const int c = (int)(e % N);
+    const size_t bc = b * N + c;
     const uint4 dv = *reinterpret_cast<const uint4*>(dn + e);
     const uint4 yv = *reinterpret_cast<const uint4*>(y + e);
     const bf16* de = reinterpret_cast<const bf16*>(&dv);
     const bf16* ye = reinterpret_cast<const bf16*>(&yv);
+    float gm[8], mn[8], iv[8], a[8], q[8];
+    const float* src[5] = {gamma + c, mean + bc, inv + bc, t1 + bc, t2 + bc};
+    float* dst[5] = {gm, mn, iv, a, q};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const float4 lo = reinterpret_cast<const float4*>(src[k])[0];
+      const float4 hi = reinterpret_cast<const float4*>(src[k])[1];
+      dst[k][0] = lo.x; dst[k][1] = lo.y; dst[k][2] = lo.z; dst[k][3] = lo.w;
+      dst[k][4] = hi.x; dst[k][5] = hi.y; dst[k][6] = hi.z; dst[k][7] = hi.w;
+    }
     uint4 ov;
     bf16* oe = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const size_t bc = b * N + c + j;
-      const float yhat = (f32(ye[j]) - mean[bc]) * inv[bc];
-      const float v = (gamma[c + j] * f32(de[j]) - t1[bc]) - yhat * t2[bc];
-      oe[j] = rnd(inv[bc] * v);
+      const float yhat = (f32(ye[j]) - mn[j]) * iv[j];
+      const float v = (gm[j] * f32(de[j]) - a[j]) - yhat * q[j];
+      oe[j] = rnd(iv[j] * v);
     }
     *reinterpret_cast<uint4*>(dy + e) = ov;
   }
@@ -281,70 +299,95 @@ __global__ void __launch_bounds__(hopper::CONV_THREADS) dgrad_gemm(
       acc, smem, pa, reinterpret_cast<const char*>(Wt + (size_t)n0 * K),
       K * 2);
 
-  float s[BN / 8][2], q[BN / 8][2];
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = q[j][0] = q[j][1] = 0.f;
+  // Epilogue: bf16(acc) into a [128][BN] tile in shared memory (rows
+  // padded by 16 bytes: conflict-free), then each thread takes 8 columns
+  // of every 16th (BN = 128) or 32nd (BN = 64) row with 16-byte loads and
+  // stores: the mask and the GN partials (EPI_MASK) or the residual add
+  // (EPI_RESID).
+  constexpr int PITCH = BN + 8;         // bf16
+  constexpr int CH = BN / 8;            // 8-column chunks per row
+  constexpr int RG = hopper::CONV_THREADS / CH;  // row groups
+  bf16* tile = reinterpret_cast<bf16*>(smem);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int p = m0 + hopper::acc_row(tid, half);
-    if (p >= HW) continue;
-    const size_t rowoff = ((size_t)b * HW + p) * N;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      bf16 v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + hopper::acc_col(tid, j) + e;
-        v[e] = rnd(acc[4 * j + 2 * half + e]);
-        if (EPI == EPI_MASK) {
-          const size_t bc = (size_t)b * N + col;
-          const bf16 yf = ep.yf[rowoff + col];
-          if (!(affine(yf, ep.sc[bc], ep.sh[bc]) > 0.f)) v[e] = rnd(0.f);
-          const float d = f32(v[e]);
-          const float yhat = (f32(yf) - ep.mean[bc]) * ep.inv[bc];
-          s[j][e] += d;
-          q[j][e] += d * yhat;
-        } else {
-          v[e] = rnd(f32(v[e]) + f32(ep.res[rowoff + col]));
-        }
-      }
-      *reinterpret_cast<__nv_bfloat162*>(Y + rowoff + n0 +
-                                         hopper::acc_col(tid, j)) =
-          __halves2bfloat162(v[0], v[1]);
-    }
-  }
-  if constexpr (EPI == EPI_MASK) {
-    // Column sums: over g within each warp, then over the 8 warps in order.
+    bf16* trow = tile + hopper::acc_row(tid, half) * PITCH;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(trow + hopper::acc_col(tid, j)) =
+          __halves2bfloat162(rnd(acc[4 * j + 2 * half]),
+                             rnd(acc[4 * j + 2 * half + 1]));
+  }
+  __syncthreads();
+  const int cq = tid % CH, rg = tid / CH;
+  const int col = n0 + cq * 8;
+  // This thread's columns' GN terms (EPI_MASK) and partial sums.
+  float s[8], q[8], mn[8], iv[8];
+  uint4 scv, shv;
+  const bf16* se = reinterpret_cast<const bf16*>(&scv);
+  const bf16* he = reinterpret_cast<const bf16*>(&shv);
+  if constexpr (EPI == EPI_MASK) {
+    const size_t bc = (size_t)b * N + col;
+    scv = *reinterpret_cast<const uint4*>(ep.sc + bc);
+    shv = *reinterpret_cast<const uint4*>(ep.sh + bc);
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+    for (int e = 0; e < 8; ++e) {
+      s[e] = q[e] = 0.f;
+      mn[e] = ep.mean[bc + e];
+      iv[e] = ep.inv[bc + e];
+    }
+  }
+  for (int r = rg; r < hopper::CONV_BM; r += RG) {
+    const int p = m0 + r;
+    if (p >= HW) break;
+    const size_t at = ((size_t)b * HW + p) * N + col;
+    uint4 v = *reinterpret_cast<const uint4*>(tile + r * PITCH + cq * 8);
+    bf16* ve = reinterpret_cast<bf16*>(&v);
+    if constexpr (EPI == EPI_MASK) {
+      const uint4 yv = *reinterpret_cast<const uint4*>(ep.yf + at);
+      const bf16* ye = reinterpret_cast<const bf16*>(&yv);
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], off);
-          q[j][e] += __shfl_xor_sync(0xffffffffu, q[j][e], off);
-        }
-    float* red = reinterpret_cast<float*>(smem);  // [8 warps][2][BN]
-    const int warp = tid >> 5;
-    if ((tid & 31) < 4) {
+      for (int e = 0; e < 8; ++e) {
+        if (!(affine(ye[e], se[e], he[e]) > 0.f)) ve[e] = rnd(0.f);
+        const float d = f32(ve[e]);
+        const float yhat = (f32(ye[e]) - mn[e]) * iv[e];
+        s[e] += d;
+        q[e] += d * yhat;
+      }
+    } else {
+      const uint4 rv = *reinterpret_cast<const uint4*>(ep.res + at);
+      const bf16* re = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+      for (int e = 0; e < 8; ++e) ve[e] = rnd(f32(ve[e]) + f32(re[e]));
+    }
+    *reinterpret_cast<uint4*>(Y + at) = v;
+  }
+  if constexpr (EPI == EPI_MASK) {
+    // Column sums over the row groups, in order, through shared memory.
+    float* red =
+        reinterpret_cast<float*>(smem) + hopper::CONV_BM * PITCH / 2;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = hopper::acc_col(tid, j) + e;
-          red[(warp * 2 + 0) * BN + col] = s[j][e];
-          red[(warp * 2 + 1) * BN + col] = q[j][e];
-        }
+    for (int e = 0; e < 8; ++e) {
+      red[(rg * 2 + 0) * BN + cq * 8 + e] = s[e];
+      red[(rg * 2 + 1) * BN + cq * 8 + e] = q[e];
     }
     __syncthreads();
     for (int c = tid; c < 2 * BN; c += hopper::CONV_THREADS) {
-      const int st = c / BN, col = c % BN;
+      const int st = c / BN, cc = c % BN;
       float a = 0.f;
-      for (int w = 0; w < hopper::CONV_THREADS / 32; ++w)
-        a += red[(w * 2 + st) * BN + col];
-      part[(((size_t)b * MT + mt) * 2 + st) * N + n0 + col] = a;
+      for (int g = 0; g < RG; ++g) a += red[(g * 2 + st) * BN + cc];
+      part[(((size_t)b * MT + mt) * 2 + st) * N + n0 + cc] = a;
     }
   }
+}
+
+// Dynamic shared memory of a dgrad_gemm instance for K = kb bytes: its
+// ring, or its epilogue's tile and row-group sums where larger.
+template <int BN>
+int dgrad_smem_bytes(int kb) {
+  const int epi = hopper::CONV_BM * (BN + 8) * 2 +
+                  hopper::CONV_THREADS / (BN / 8) * 2 * BN * 4 + 1024;
+  const int ring = hopper::conv_smem_bytes<BN>(kb);
+  return ring > epi ? ring : epi;
 }
 
 // Weight gradient, one K-slice per CTA:
@@ -362,10 +405,13 @@ __host__ __device__ constexpr int wgrad_smem_bytes() {
 }
 
 template <int TAPS, int BI, int BJ>
-__global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
+__global__ void __launch_bounds__(2 * BJ) wgrad_gemm(
     const bf16* __restrict__ P, const bf16* __restrict__ Q,
     float* __restrict__ part, int Bn, int H, int W, int M, int N, int S) {
-  constexpr int NTH = BI * BJ / 32;  // one warp per 32 x 32 output tile
+  // Two warps along i, one per 32 columns along j: warp tiles of BI / 2
+  // rows (MF m16 fragments) by 32 columns.
+  constexpr int NTH = 2 * BJ;
+  constexpr int MF = BI / 32;
   constexpr int PI = BI + 8, PJ = BJ + 8;  // row pitch in bf16 (+16 bytes)
   constexpr int STAGE = WG_BK * (PI + PJ);
   extern __shared__ __align__(16) char wsm_raw[];
@@ -411,9 +457,9 @@ __global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
     }
   };
 
-  float acc[2][4][4];
+  float acc[MF][4][4];
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
+  for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
     for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
@@ -434,12 +480,13 @@ __global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
     const int q8 = lane >> 3, r8 = lane & 7;
 #pragma unroll
     for (int ks = 0; ks < WG_BK; ks += 16) {
-      uint32_t af[2][4], bfr[4][2];
+      uint32_t af[MF][4], bfr[4][2];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
         hopper::ldsm_x4_trans(
             af[mf], hopper::smem_u32(ps + (ks + r8 + (q8 >> 1) * 8) * PI +
-                                     wi * 32 + mf * 16 + (q8 & 1) * 8));
+                                     wi * (BI / 2) + mf * 16 +
+                                     (q8 & 1) * 8));
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t r[4];
@@ -452,7 +499,7 @@ __global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
         bfr[2 * np + 1][1] = r[3];
       }
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) mma16816(acc[mf][nf], af[mf], bfr[nf]);
     }
@@ -461,10 +508,10 @@ __global__ void __launch_bounds__(BI * BJ / 32) wgrad_gemm(
 
   float* out = part + ((size_t)s * TAPS + tap) * M * N;
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
+  for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int i = i0 + wi * 32 + mf * 16 + g + half * 8;
+      const int i = i0 + wi * (BI / 2) + mf * 16 + g + half * 8;
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
         const int j = j0 + wj * 32 + nf * 8 + 2 * t;
@@ -518,14 +565,6 @@ using namespace BOTTLENECK_NS;
 
 namespace {
 
-// Lets a dgrad/wgrad instance take more than 48 KB of shared memory.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 template <int TAPS, int EPI>
 cudaError_t dgrad(const bf16* A, const bf16* Wt, bf16* Y, float* part, int B,
                   int H, int W, int K0, int N, const EpiArgs& ep,
@@ -534,18 +573,22 @@ cudaError_t dgrad(const bf16* A, const bf16* Wt, bf16* Y, float* part, int B,
   cudaError_t e;
   const int kb = TAPS * K0 * 2;
   if (N % 128 == 0) {
-    if ((e = allow_smem(dgrad_gemm<TAPS, EPI, 128>,
-                        hopper::conv_smem_bytes<128>())) != cudaSuccess)
+    static bool sized[hopper::MAX_DEVICES] = {};
+    if ((e = hopper::allow_smem(dgrad_gemm<TAPS, EPI, 128>,
+                                dgrad_smem_bytes<128>(1 << 30), sized)) !=
+        cudaSuccess)
       return e;
     dgrad_gemm<TAPS, EPI, 128><<<dim3(N / 128, MT, B), hopper::CONV_THREADS,
-                                 hopper::conv_smem_bytes<128>(kb), st>>>(
+                                 dgrad_smem_bytes<128>(kb), st>>>(
         A, Wt, Y, part, H, W, K0, N, ep);
   } else {
-    if ((e = allow_smem(dgrad_gemm<TAPS, EPI, 64>,
-                        hopper::conv_smem_bytes<64>())) != cudaSuccess)
+    static bool sized[hopper::MAX_DEVICES] = {};
+    if ((e = hopper::allow_smem(dgrad_gemm<TAPS, EPI, 64>,
+                                dgrad_smem_bytes<64>(1 << 30), sized)) !=
+        cudaSuccess)
       return e;
     dgrad_gemm<TAPS, EPI, 64><<<dim3(N / 64, MT, B), hopper::CONV_THREADS,
-                                hopper::conv_smem_bytes<64>(kb), st>>>(
+                                dgrad_smem_bytes<64>(kb), st>>>(
         A, Wt, Y, part, H, W, K0, N, ep);
   }
   return cudaGetLastError();
@@ -555,9 +598,11 @@ template <int TAPS, int BI, int BJ>
 cudaError_t wgrad_tile(const bf16* P, const bf16* Q, float* part, int B,
                        int H, int W, int M, int N, int S, cudaStream_t st) {
   constexpr int smem = wgrad_smem_bytes<BI, BJ>();
-  cudaError_t e = allow_smem(wgrad_gemm<TAPS, BI, BJ>, smem);
+  static bool sized[hopper::MAX_DEVICES] = {};
+  const cudaError_t e =
+      hopper::allow_smem(wgrad_gemm<TAPS, BI, BJ>, smem, sized);
   if (e != cudaSuccess) return e;
-  wgrad_gemm<TAPS, BI, BJ><<<dim3(N / BJ, M / BI, S * TAPS), BI * BJ / 32,
+  wgrad_gemm<TAPS, BI, BJ><<<dim3(N / BJ, M / BI, S * TAPS), 2 * BJ,
                              smem, st>>>(P, Q, part, B, H, W, M, N, S);
   return cudaGetLastError();
 }
@@ -587,8 +632,9 @@ cudaError_t wgrad(const bf16* P, const bf16* Q, float* part, int B, int H,
 // [B,HW,C] bf16; tt [2,B,C] fp32; gimg [6,B,C] fp32; wpart fp32 of
 // max(S1*F*C, S2*9*F*F, S3*C*F).  Outputs (fp32): dk1 [F,C], dk2 [F,F,3,3],
 // dk3 [C,F], dg*/db* [F] or [C].  S1..S3: K-slices of the dk1, dk2, dk3
-// wgrads.  Requires C % 64 == 0 and F % 64 == 0 and 1 <= S <= ceil(B*H*W/32)
-// (checked by the Python wrapper).  Returns the first launch error (0 =
+// wgrads.  Requires C % 64 == 0 and F % 64 == 0, GN groups of C/G3 and F/G1
+// channels that divide 64, and 1 <= S <= ceil(B*H*W/32) (checked by the
+// Python wrapper).  Returns the first launch error (0 =
 // cudaSuccess).
 extern "C" int fused_bottleneck_bwd(
     const void* x, const void* dout, const void* w1, const void* w1t,
@@ -668,8 +714,8 @@ extern "C" int fused_bottleneck_bwd(
       Y3, X, static_cast<const bf16*>(dout), sc3, sh3, mean3, inv3, DN3, pt,
       HW, C);
   CHECK();
-  gn_bwd_finalize<<<B, 256, smC, st>>>(pt, MT, C, G3, HW, G3p, t1, t2,
-                                       gi + 4 * bc, gi + 5 * bc);
+  gn_bwd_finalize<<<dim3(C / 64, B), 256, 0, st>>>(
+      pt, MT, C, G3, HW, G3p, t1, t2, gi + 4 * bc, gi + 5 * bc);
   CHECK();
   gn_bwd_dy<<<grid1d(bc * HW / 8, 256), 256, 0, st>>>(
       DN3, Y3, G3p, mean3, inv3, t1, t2, DY, HW, C, bc * HW / 8);
@@ -683,8 +729,8 @@ extern "C" int fused_bottleneck_bwd(
   reduce_slices<<<grid1d((size_t)C * F, 256), 256, 0, st>>>(
       wp, static_cast<float*>(dk3), S3, 1, C, F);
   CHECK();
-  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT2, F, G1, HW, G2p, t1, t2,
-                                       gi + 2 * bc, gi + 3 * bc);
+  gn_bwd_finalize<<<dim3(F / 64, B), 256, 0, st>>>(
+      pt, MT2, F, G1, HW, G2p, t1, t2, gi + 2 * bc, gi + 3 * bc);
   CHECK();
   gn_bwd_dy<<<grid1d(nF, 256), 256, 0, st>>>(DN, Y2, G2p, mean2, inv2, t1,
                                              t2, DY, HW, F, nF);
@@ -699,8 +745,8 @@ extern "C" int fused_bottleneck_bwd(
   reduce_slices<<<grid1d((size_t)9 * F * F, 256), 256, 0, st>>>(
       wp, static_cast<float*>(dk2), S2, 9, F, F);
   CHECK();
-  gn_bwd_finalize<<<B, 256, smF, st>>>(pt, MT2, F, G1, HW, G1p, t1, t2, gi,
-                                       gi + bc);
+  gn_bwd_finalize<<<dim3(F / 64, B), 256, 0, st>>>(
+      pt, MT2, F, G1, HW, G1p, t1, t2, gi, gi + bc);
   CHECK();
   gn_bwd_dy<<<grid1d(nF, 256), 256, 0, st>>>(DN, Y1, G1p, mean1, inv1, t1,
                                              t2, DY, HW, F, nF);

@@ -15,29 +15,41 @@
 //      reduces them and writes s_x = max(amax, 1e-8) / 127 with a true
 //      division.  Max is exact, so the result does not depend on order.
 //      |x| compares as the unsigned bit pattern of a non-negative float.
-//   2. int8_quantize: x -> x_q, 16 elements per thread, a true IEEE
-//      division (__fdiv_rn) as the model path divides (the TPU kernel
-//      multiplied by 1/s_x); rintf rounds half to even like jnp.round.
+//   2. int8_quantize: x -> x_q, 16 elements per thread.  The quotient is
+//      the correctly rounded x / s_x, as the model path divides (the TPU
+//      kernel multiplied by 1/s_x): x * (1/s_x) gives the same integer
+//      except within ~3e-5 of a half-integer, where the kernel divides
+//      (__fdiv_rn); rintf rounds half to even like jnp.round.  A division
+//      per element made this pass compute-bound.
 //   3. int8_conv_gemm: implicit GEMM, M = B*Ho*Wo output pixels (all images
 //      in one M), N = F, K = k*k*C tap-major, through hopper_gemm.cuh's
-//      mainloop: 128 x BN tiles (BN = 64, 128 or 256 from F, so the 64-wide
-//      res2 convs fill their tile), four cp.async stages of 128 bytes of K
-//      in the 128-byte swizzle, zero-filled outside the image (src-size 0),
-//      and int8 wgmma m64nBNk32 on two warpgroups.  Both operands are
-//      K-major (x_q is NHWC, w_q tap-major), the layout int8 wgmma takes,
-//      so wgmma fits every shape.  The epilogue converts acc with
-//      __int2float_rn (|acc| reaches 127^2 * 9 * 512 > 2^24, so it rounds,
-//      as XLA's does), multiplies by the fp32 product s_x*s_w[f], adds the
-//      bias in fp32, applies relu and casts.  s32 sums are exact in any
-//      order, so the result equals the plain version (float64 sums of the
-//      same integers, same fp32 epilogue) bitwise.
+//      mainloop: 128 x BN tiles (BN = 64, 128 or 256 by F, the grid and K:
+//      the 64-wide res2 convs fill their tile, small grids take narrow
+//      tiles), a ring of three cp.async stages of 128 bytes of K in the
+//      128-byte swizzle (fewer where K is shorter, so more CTAs fit an SM),
+//      zero-filled outside the image (src-size 0), and int8 wgmma
+//      m64nBNk32 on two warpgroups.  Both operands are K-major (x_q is
+//      NHWC, w_q tap-major), the layout int8 wgmma takes, so wgmma fits
+//      every shape.  The epilogue converts acc with __int2float_rn (|acc|
+//      reaches 127^2 * 9 * 512 > 2^24, so it rounds, as XLA's does),
+//      multiplies by the fp32 product s_x*s_w[f], adds the bias in fp32,
+//      applies relu and casts into a shared-memory tile, written out in
+//      whole 16-byte rows.  s32 sums are exact in any order, so the result
+//      equals the plain version (float64 sums of the same integers, same
+//      fp32 epilogue) bitwise.
 //
 // What bounds it: at 640 px the quantized convs are K = C..9C GEMMs over
 // B*Ho*Wo rows, ~39 GMAC per image, 0.04 ms per image at 1,979 TOPS, so
 // reading x (bf16) and writing y (bf16) sets the bound for nearly all of
-// them.  The quantize pass still writes x_q to device memory and the GEMM
-// reads it back (up to nine times for a 3x3 conv, from L2).  Compile with
-// -fmad=false (the epilogue's multiply and add each round).
+// them.  Three passes read x: int8_amax (2 bytes per element), the
+// quantize pass (2, and 1 written) and the GEMM (1, up to nine times for a
+// 3x3 conv, from L2).  Quantizing inside the GEMM's A producer, for the
+// 1x1 convs where each x element is read once per output tile, was tried:
+// loading bf16 x through registers and dividing there held the GEMM's
+// pipeline up, and the three launches stayed faster.  At batch 8 most
+// convs are a few tens of microseconds, so the host's three launches per
+// conv set the pace of a whole conv.  Compile with -fmad=false (the
+// epilogue's multiply and add each round).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,9 +118,17 @@ __global__ void __launch_bounds__(AMAX_THREADS) int8_amax(
   }
 }
 
-__device__ __forceinline__ int8_t quantize(float v, float s) {
-  float r = rintf(__fdiv_rn(v, s));
-  r = fminf(fmaxf(r, -127.f), 127.f);
+// clip(rint(v / s), -127, 127) with v / s the correctly rounded quotient
+// (rs = 1/s, rounded).  t = v * rs lies within 2^-23 |v / s| of v / s, and
+// the rounded quotient within 2^-24 |v / s|: below |v / s| = 256 both are
+// within 3.1e-5 of each other, so they round to the same integer unless
+// v / s lies that close to a half-integer, where the true division decides
+// (above 256 both clip to the same end).  Bitwise the quotient's result at
+// the cost of a multiply for all but ~1e-4 of the elements.
+__device__ __forceinline__ int8_t quantize(float v, float s, float rs) {
+  float t = __fmul_rn(v, rs);
+  if (fabsf(t - floorf(t) - 0.5f) < 1e-4f) t = __fdiv_rn(v, s);
+  const float r = fminf(fmaxf(rintf(t), -127.f), 127.f);
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
@@ -118,6 +138,7 @@ __global__ void int8_quantize(const T* __restrict__ x,
                               const float* __restrict__ sx,
                               int8_t* __restrict__ q, size_t n16) {
   const float s = *sx;
+  const float rs = __fdiv_rn(1.f, s);
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n16;
        i += (size_t)gridDim.x * blockDim.x) {
     constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
@@ -136,7 +157,7 @@ __global__ void int8_quantize(const T* __restrict__ x,
       } else {
         v = e[j];
       }
-      o[j] = quantize(v, s);
+      o[j] = quantize(v, s, rs);
     }
     reinterpret_cast<uint4*>(q)[i] = out;
   }
@@ -150,50 +171,10 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// The A producer of a 1x1 conv that quantizes as it loads: 64 bf16 of x
-// per thread per stage, divided by s_x, rounded and clipped as
-// int8_quantize does, stored to the stage with st.shared.  It replaces the
-// quantize pass and its x_q round trip through device memory.
-struct QuantizeA {
-  static constexpr bool kAsync = false;
-  ConvRow row;  // img: a bf16 NHWC image, C channels per pixel
-  int H, W, C;
-  float s;
-
-  __device__ __forceinline__ void operator()(uint32_t sa, int k0,
-                                             int tid) const {
-    const int r = tid >> 1, h = tid & 1;
-    const int c = k0 + h * 64;
-    const bool ok = row.valid && c < C && row.iy0 >= 0 && row.iy0 < H &&
-                    row.ix0 >= 0 && row.ix0 < W;
-    uint4 v[8];
-    if (ok) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          row.img + (((size_t)row.iy0 * W + row.ix0) * C + c) * 2);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = src[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    const bf16* e = reinterpret_cast<const bf16*>(v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint4 o;
-      int8_t* ob = reinterpret_cast<int8_t*>(&o);
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        ob[i] = quantize(__bfloat162float(e[j * 16 + i]), s);
-      st_shared16(sa + sw128(r, h * 4 + j), o);
-    }
-  }
-};
-
-// out[p, n] = epi(sum_k x_q[tap(p, k)] * w_q[n, k]) over M = B*Ho*Wo rows;
-// with QUANT (1x1 only) the A rows are quantized from bf16 x as they load.
-template <int BN, int KS, typename OutT, bool QUANT>
+// out[p, n] = epi(sum_k x_q[tap(p, k)] * w_q[n, k]) over M = B*Ho*Wo rows.
+template <int BN, int KS, typename OutT>
 __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
-    const void* __restrict__ xin, const int8_t* __restrict__ wq,
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     const float* __restrict__ sx, const float* __restrict__ sw,
     const float* __restrict__ bias, OutT* __restrict__ out, int M, int H,
     int W, int C, int F, int stride, int pad_t, int pad_l, int Ho, int Wo,
@@ -214,27 +195,22 @@ __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
     const int hwo = Ho * Wo;
     const int b = pp / hwo, rem = pp - b * hwo;
     const int oy = rem / Wo, ox = rem - oy * Wo;
-    row.img = static_cast<const char*>(xin) +
-              (size_t)b * H * W * C * (QUANT ? 2 : 1);
+    row.img = reinterpret_cast<const char*>(xq) + (size_t)b * H * W * C;
     row.iy0 = oy * stride - pad_t;
     row.ix0 = ox * stride - pad_l;
   }
   const char* wt = reinterpret_cast<const char*>(wq) + (size_t)n0 * K;
   int acc[BN / 2];
-  if constexpr (QUANT) {
-    static_assert(KS == 1, "the quantizing producer serves 1x1 convs");
-    const QuantizeA pa = {row, H, W, C, s};
-    conv_mainloop<BN>(acc, smem, pa, wt, K);
-  } else {
-    const CopyA<KS> pa = {row, H, W, C, K};
-    conv_mainloop<BN>(acc, smem, pa, wt, K);
-  }
+  const CopyA<KS> pa = {row, H, W, C, K};
+  conv_mainloop<BN>(acc, smem, pa, wt, K);
 
+  // Epilogue: dequantize into a [128][BN] tile in shared memory (rows
+  // padded by 16 bytes: conflict-free), then write whole rows out in
+  // 16-byte pieces.
+  constexpr int PITCH = BN * sizeof(OutT) + 16;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int p = m0 + acc_row(tid, half);
-    if (p >= M) continue;
-    OutT* orow = out + (size_t)p * F + n0;
+    OutT* trow = reinterpret_cast<OutT*>(smem + acc_row(tid, half) * PITCH);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = acc_col(tid, j);
@@ -247,42 +223,55 @@ __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
         if (relu) y = fmaxf(y, 0.f);
         v[e] = y;
       }
-      store2(orow + col, v[0], v[1]);
+      store2(trow + col, v[0], v[1]);
     }
+  }
+  __syncthreads();
+  constexpr int CH = BN * sizeof(OutT) / 16;  // 16-byte pieces per row
+  for (int c = tid; c < CONV_BM * CH; c += CONV_THREADS) {
+    const int r = c / CH, q = c - r * CH;
+    if (m0 + r < M)
+      reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * F + n0)[q] =
+          *reinterpret_cast<const uint4*>(smem + r * PITCH + q * 16);
   }
 }
 
-template <int BN, int KS, typename OutT, bool QUANT = false>
-cudaError_t launch_conv(const void* xq, const int8_t* wq, const float* sx,
+// Dynamic shared memory of an int8_conv_gemm instance: its ring for K =
+// kb bytes, or the epilogue's tile where that is larger.
+template <int BN, typename OutT>
+int gemm_smem_bytes(int kb) {
+  const int tile = CONV_BM * (BN * (int)sizeof(OutT) + 16) + 1024;
+  const int ring = conv_smem_bytes<BN>(kb);
+  return ring > tile ? ring : tile;
+}
+
+template <int BN, int KS, typename OutT>
+cudaError_t launch_conv(const int8_t* xq, const int8_t* wq, const float* sx,
                         const float* sw, const float* bias, void* out, int B,
                         int H, int W, int C, int F, int stride, int pad_t,
                         int pad_l, int Ho, int Wo, int has_bias, int relu,
                         cudaStream_t st) {
-  auto kernel = int8_conv_gemm<BN, KS, OutT, QUANT>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      conv_smem_bytes<BN>());
+  auto kernel = int8_conv_gemm<BN, KS, OutT>;
+  static bool sized[MAX_DEVICES] = {};
+  const cudaError_t e =
+      allow_smem(kernel, gemm_smem_bytes<BN, OutT>(1 << 30), sized);
   if (e != cudaSuccess) return e;
   const int M = B * Ho * Wo;
   const dim3 grid(F / BN, (M + CONV_BM - 1) / CONV_BM);
-  kernel<<<grid, CONV_THREADS, conv_smem_bytes<BN>(KS * KS * C), st>>>(
+  kernel<<<grid, CONV_THREADS, gemm_smem_bytes<BN, OutT>(KS * KS * C),
+           st>>>(
       xq, wq, sx, sw, bias, static_cast<OutT*>(out), M, H, W, C, F, stride,
       pad_t, pad_l, Ho, Wo, has_bias, relu);
   return cudaGetLastError();
 }
 
-// ks 1 or 3, or 0 for a 1x1 conv that quantizes bf16 x as it loads.
 template <int BN, typename OutT>
-cudaError_t launch_conv_ks(int ks, const void* xq, const int8_t* wq,
+cudaError_t launch_conv_ks(int ks, const int8_t* xq, const int8_t* wq,
                            const float* sx, const float* sw,
                            const float* bias, void* out, int B, int H, int W,
                            int C, int F, int stride, int pad_t, int pad_l,
                            int Ho, int Wo, int has_bias, int relu,
                            cudaStream_t st) {
-  if (ks == 0)
-    return launch_conv<BN, 1, OutT, true>(xq, wq, sx, sw, bias, out, B, H, W,
-                                          C, F, stride, pad_t, pad_l, Ho, Wo,
-                                          has_bias, relu, st);
   if (ks == 1)
     return launch_conv<BN, 1, OutT>(xq, wq, sx, sw, bias, out, B, H, W, C, F,
                                     stride, pad_t, pad_l, Ho, Wo, has_bias,
@@ -293,7 +282,7 @@ cudaError_t launch_conv_ks(int ks, const void* xq, const int8_t* wq,
 }
 
 template <typename OutT>
-cudaError_t launch_conv_bn(int bn, int ks, const void* xq,
+cudaError_t launch_conv_bn(int bn, int ks, const int8_t* xq,
                            const int8_t* wq, const float* sx, const float* sw,
                            const float* bias, void* out, int B, int H, int W,
                            int C, int F, int stride, int pad_t, int pad_l,
@@ -322,10 +311,9 @@ int grid_for(size_t n16, int per_cta, int most) {
 
 using namespace b6_int8_conv;
 
-// One int8 convolution, its launches in order; `which` selects them (bit
-// 0 int8_amax, bit 1 int8_quantize, bit 2 int8_conv_gemm), so that a caller
-// can time the GEMM alone.  With fuse (a 1x1 conv of bf16 x) the GEMM
-// quantizes x as it loads it and the quantize launch is skipped.
+// One int8 convolution, its three launches in order; `which` selects them
+// (bit 0 int8_amax, bit 1 int8_quantize, bit 2 int8_conv_gemm), so that a
+// caller can time the GEMM alone.
 //   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq [B,H,W,C] s8 scratch;
 //   scratch: AMAX_MAX_CTAS + 2 words: per-CTA maxima, the ticket (0 on
 //   entry, left 0), then s_x (fp32);
@@ -341,7 +329,7 @@ extern "C" int int8_conv_forward(const void* x, int in_code, void* xq,
                                  int B, int H, int W, int C, int F, int ks,
                                  int stride, int pad_t, int pad_l, int Ho,
                                  int Wo, int out_code, int has_bias, int relu,
-                                 int bn, int which, int fuse, void* stream) {
+                                 int bn, int which, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned* partial = static_cast<unsigned*>(scratch);
   unsigned* ticket = partial + AMAX_MAX_CTAS;
@@ -360,8 +348,7 @@ extern "C" int int8_conv_forward(const void* x, int in_code, void* xq,
           static_cast<const float*>(x), n16, partial, ticket, sx);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  fuse = fuse && ks == 1 && in_code == 0;
-  if ((which & 2) && !fuse) {
+  if (which & 2) {
     const size_t n16 = n / 16;
     const int blocks = grid_for(n16, 256, 65535);
     if (in_code == 0)
@@ -376,15 +363,13 @@ extern "C" int int8_conv_forward(const void* x, int in_code, void* xq,
     const int8_t* w8 = static_cast<const int8_t*>(wq);
     const float* w = static_cast<const float*>(sw);
     const float* bi = static_cast<const float*>(bias);
-    const void* a = fuse ? x : static_cast<const void*>(q);
-    const int kind = fuse ? 0 : ks;
     if (out_code == 0)
-      return launch_conv_bn<bf16>(bn, kind, a, w8, sx, w, bi, out, B, H, W,
-                                  C, F, stride, pad_t, pad_l, Ho, Wo,
-                                  has_bias, relu, st);
-    return launch_conv_bn<float>(bn, kind, a, w8, sx, w, bi, out, B, H, W, C,
-                                 F, stride, pad_t, pad_l, Ho, Wo, has_bias,
-                                 relu, st);
+      return launch_conv_bn<bf16>(bn, ks, q, w8, sx, w, bi, out, B, H, W, C,
+                                  F, stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                  relu, st);
+    return launch_conv_bn<float>(bn, ks, q, w8, sx, w, bi, out, B, H, W, C, F,
+                                 stride, pad_t, pad_l, Ho, Wo, has_bias, relu,
+                                 st);
   }
   return cudaSuccess;
 }

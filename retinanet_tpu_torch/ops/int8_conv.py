@@ -27,6 +27,7 @@ bitwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -38,16 +39,17 @@ from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("int8_conv.cu", {
-    "int8_conv_forward": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_P],
+    "int8_conv_forward": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 16 + [_P],
 })
 
 # Input and output dtypes the kernels take, by the code the C side reads.
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-# int8_amax's scratch, one per device and stream (launches on one stream
-# run in order, so they never share it): AMAX_MAX_CTAS per-CTA maxima, the
-# ticket word (zero between launches), then s_x.
+# Scratch of the wrapper, one pair per device and stream (launches on one
+# stream run in order, so they never share it): int8_amax's AMAX_MAX_CTAS
+# per-CTA maxima, the ticket word (zero between launches) and s_x; and the
+# x_q buffer, grown to the largest x seen.
 _AMAX_CTAS = 1024
-_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+_SCRATCH: Dict[Tuple[int, int], Tuple[Tensor, Tensor]] = {}
 # int8_conv_forward's launches, as bits of its ``which``.
 AMAX, QUANTIZE, GEMM = 1, 2, 4
 
@@ -150,85 +152,102 @@ def tile_n(f: int, m: int, k: int) -> int:
     return 64
 
 
-def fuses_quantize(weights: Int8Weights, x: Tensor) -> bool:
-    """Whether B6's GEMM quantizes x as it loads it: 1×1 convs of bf16 x
-    (each x element is read once per output tile, so no x_q pass)."""
-    return weights.shape[2] == 1 and x.dtype == torch.bfloat16
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, by the raw query
+    PyTorch's generated code uses (a few microseconds less per call than
+    ``torch.cuda.current_stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def scratch(device: torch.device) -> Tensor:
-    """This device and stream's ``int8_amax`` scratch; s_x is its last
-    word, as fp32."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = torch.zeros(_AMAX_CTAS + 2, dtype=torch.int32,
-                                    device=device)
-    return _SCRATCH[key]
+def scratch(device: torch.device, stream: Optional[int] = None,
+            x_bytes: int = 0) -> Tuple[Tensor, Tensor]:
+    """(``int8_amax``'s scratch, an int8 x_q buffer of at least
+    ``x_bytes``) of this device and stream (default: the current one); s_x
+    is the first one's last word, as fp32."""
+    key = (device.index, current_stream(device) if stream is None
+           else stream)
+    work, x_q = _SCRATCH.get(key, (None, None))
+    if work is None:
+        work = torch.zeros(_AMAX_CTAS + 2, dtype=torch.int32, device=device)
+    if x_q is None or x_q.numel() < x_bytes:
+        x_q = torch.empty(x_bytes, dtype=torch.int8, device=device)
+    _SCRATCH[key] = work, x_q
+    return work, x_q
 
 
-def launch(x: Tensor, x_q: Optional[Tensor], work: Tensor,
-           weights: Int8Weights, out: Tensor, strides: int,
-           bias: Optional[Tensor] = None, relu: bool = False,
-           which: int = AMAX | QUANTIZE | GEMM, bn: Optional[int] = None,
-           fuse: Optional[bool] = None) -> None:
+@functools.lru_cache(maxsize=None)
+def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
+              k_shape: Tuple[int, ...], strides: int,
+              out_dtype: torch.dtype):
+    """Checks one conv's shapes and dtypes, once per geometry, and returns
+    ``int8_conv_forward``'s integer arguments: (in_code, (B, H, W, C, F,
+    k, stride, pad_t, pad_l, Ho, Wo, out_code), the ``tile_n`` tile, the
+    output's shape)."""
+    bsz, h, w, c = x_shape
+    f, cin, kh, kw = k_shape
+    if cin != c or kh != kw or kh not in (1, 3) or strides not in (1, 2):
+        raise ValueError(f"B6 takes a 1x1 or 3x3 OIHW kernel with stride 1 "
+                         f"or 2 over x's {c} channels, got kernel "
+                         f"{tuple(k_shape)}, stride {strides}")
+    if c % 64 or f % 64:
+        raise ValueError(f"B6 needs C and F divisible by 64, got C={c}, "
+                         f"F={f}")
+    if x_dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"B6 takes bf16 or fp32 in and out, got "
+                         f"{x_dtype} -> {out_dtype}")
+    ho, wo = -(-h // strides), -(-w // strides)
+    top, _ = same_padding(h, kh, strides)
+    left, _ = same_padding(w, kh, strides)
+    return (_DTYPE_CODES[x_dtype],
+            (bsz, h, w, c, f, kh, strides, top, left, ho, wo,
+             _DTYPE_CODES[out_dtype]),
+            tile_n(f, bsz * ho * wo, kh * kh * c), (bsz, ho, wo, f))
+
+
+def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
+           out: Tensor, strides: int, bias: Optional[Tensor] = None,
+           relu: bool = False, which: int = AMAX | QUANTIZE | GEMM,
+           bn: Optional[int] = None, stream: Optional[int] = None) -> None:
     """B6's launches on x [B,H,W,C] into out [B,Ho,Wo,F] (bf16 or fp32),
-    with x_q (int8, x's shape; None when the GEMM quantizes) and ``work``
-    (``scratch``) as scratch; ``bias`` contiguous fp32 or None.  ``which``
-    picks the launches (the GEMM alone reads the x_q and s_x a previous
-    call left), ``bn`` the tile (default ``tile_n``), ``fuse`` whether the
-    GEMM quantizes x itself (default ``fuses_quantize``)."""
-    bsz, h, w, c = x.shape
-    f, _, k, _ = weights.shape
-    ho, wo = out.shape[1], out.shape[2]
-    top, _ = same_padding(h, k, strides)
-    left, _ = same_padding(w, k, strides)
-    LIB.call("int8_conv_forward", x.data_ptr(), _DTYPE_CODES[x.dtype],
-             None if x_q is None else x_q.data_ptr(), work.data_ptr(),
-             weights.w_q.data_ptr(),
-             weights.s_w.data_ptr(),
+    with x_q (int8, at least x's size) and ``work`` (``scratch``) as
+    scratch;
+    ``bias`` contiguous fp32 or None.  ``which`` picks the launches (the
+    GEMM alone reads the x_q and s_x a previous call left), ``bn`` the
+    tile (default ``tile_n``), ``stream`` the CUDA stream (default: the
+    current one)."""
+    in_code, ints, tile, _ = _geometry(x.shape, x.dtype, weights.shape,
+                                       strides, out.dtype)
+    LIB.call("int8_conv_forward", x.data_ptr(), in_code, x_q.data_ptr(),
+             work.data_ptr(), weights.w_q.data_ptr(), weights.s_w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
-             bsz, h, w, c, f, k, strides, top, left, ho, wo,
-             _DTYPE_CODES[out.dtype], int(bias is not None), int(relu),
-             bn or tile_n(f, bsz * ho * wo, k * k * c), which,
-             int(fuses_quantize(weights, x) if fuse is None else fuse),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             *ints, int(bias is not None), int(relu), bn or tile, which,
+             stream or current_stream(x.device))
 
 
 def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
                     out_dtype: torch.dtype, bias: Optional[Tensor],
                     relu: bool,
                     weights: Optional[Int8Weights] = None) -> Tensor:
-    bsz, h, w, c = x.shape
-    f, cin, kh, kw = kernel.shape
-    if cin != c or kh != kw or kh not in (1, 3) or strides not in (1, 2):
-        raise ValueError(f"B6 takes a 1x1 or 3x3 OIHW kernel with stride 1 "
-                         f"or 2 over x's {c} channels, got kernel "
-                         f"{tuple(kernel.shape)}, stride {strides}")
-    if c % 64 or f % 64:
-        raise ValueError(f"B6 needs C and F divisible by 64, got C={c}, "
-                         f"F={f}")
-    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
-        raise ValueError(f"B6 takes bf16 or fp32 in and out, got "
-                         f"{x.dtype} -> {out_dtype}")
+    out_shape = _geometry(x.shape, x.dtype, kernel.shape, strides,
+                          out_dtype)[3]
     if kernel.device != x.device or (bias is not None
                                      and bias.device != x.device):
         raise ValueError(f"kernel and bias must lie on {x.device}")
-    if bias is not None and bias.numel() != f:
-        raise ValueError(f"bias needs {f} elements, got {bias.numel()}")
+    if bias is not None and bias.numel() != out_shape[3]:
+        raise ValueError(f"bias needs {out_shape[3]} elements, got "
+                         f"{bias.numel()}")
     check_cuda(x, "x", x.dtype)
     if weights is None:
         weights = prepare_weights(kernel)
-    if tuple(weights.shape) != tuple(kernel.shape):
+    if weights.shape != kernel.shape:
         raise ValueError(f"prepared weights of shape {weights.shape} do not "
                          f"fit kernel {tuple(kernel.shape)}")
     check_cuda(weights.w_q, "w_q", torch.int8)
-    check_cuda(weights.s_w, "s_w", torch.float32)
     bias32 = bias.float().contiguous() if bias is not None else None
-    ho, wo = -(-h // strides), -(-w // strides)
-    x_q = (None if fuses_quantize(weights, x) else
-           torch.empty(x.shape, dtype=torch.int8, device=x.device))
-    out = torch.empty(bsz, ho, wo, f, dtype=out_dtype, device=x.device)
-    launch(x, x_q, scratch(x.device), weights, out, strides, bias32, relu)
+    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+    stream = current_stream(x.device)
+    work, x_q = scratch(x.device, stream, x.numel())
+    launch(x, x_q, work, weights, out, strides, bias32, relu, stream=stream)
     int8_conv.launches += 1
     return out
 

@@ -183,3 +183,35 @@ def test_conv_keeps_weights_per_parameter_version(change):
     assert prepare_weights.builds == builds + 1
     assert not torch.equal(got.float(), first.float())
     assert torch.equal(got, _plain_of(conv, x))
+
+
+def _quantize_by_reciprocal(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``int8_quantize``'s arithmetic in fp32: t = x · RN(1/s), the true
+    division only where t lies within 1e-4 of a half-integer."""
+    rs = torch.ones_like(s) / s
+    t = x * rs
+    near = (t - torch.floor(t) - 0.5).abs() < 1e-4
+    t = torch.where(near, x / s, t)
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+
+
+def test_quantize_by_reciprocal_equals_the_division():
+    """The kernel multiplies by 1/s_x and divides only near a rounding
+    boundary; that gives clip(round(x / s_x)) bitwise, here over 200
+    seeded scales with inputs at, and within 1e-6..1e-3 of, every
+    half-integer quotient in [-128, 128], ties included, and random
+    inputs up to ±amax."""
+    rng = np.random.RandomState(5)
+    halves = np.arange(-128, 128) + 0.5
+    for _ in range(200):
+        amax = np.float32(10.0 ** rng.uniform(-6, 3))
+        s = torch.tensor(max(amax, np.float32(1e-8))) / torch.tensor(
+            np.float32(127.0))
+        sv = np.float32(s.item())
+        offsets = np.concatenate([[0.0], rng.choice([-1, 1], 64)
+                                  * 10.0 ** rng.uniform(-6, -3, 64)])
+        near = ((halves[:, None] + offsets[None, :]) * sv).astype(np.float32)
+        spread = (rng.uniform(-1, 1, 4096) * amax).astype(np.float32)
+        x = torch.from_numpy(np.concatenate([near.ravel(), spread]))
+        want = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        assert torch.equal(_quantize_by_reciprocal(x, s), want)
