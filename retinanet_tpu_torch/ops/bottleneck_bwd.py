@@ -50,7 +50,7 @@ LIB = KernelLibrary("bottleneck_bwd.cu", {
 # k-step of its tiles.
 _MAX_SLICES = 128
 _TARGET_CTAS = 528
-_WGRAD_BK = 32
+_WGRAD_BK = 64
 
 Grads = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
               Tensor, Tensor]

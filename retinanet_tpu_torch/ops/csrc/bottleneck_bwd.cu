@@ -56,12 +56,11 @@
 // runs on wgmma.
 // wgrad_gemm computes part[s, tap, i, j] = sum_r P[r, i] * Q_tap[r, j] over
 // the rows r of K-slice s: both operands are MN-major (pixels by channels),
-// staged as they lie with 16-byte cp.async copies in four stages of 32 rows
-// (padded rows, conflict-free), read by ldmatrix.x4.trans into mma.sync
-// m16n8k16 fragments, 128 x 128 tiles (64 where a dimension is 64) of
-// (BI/2) x 32 warp tiles.  wgmma's transposed (MN-major) descriptors would
-// serve here too; the ldmatrix path is kept for them as the one already
-// proven on the card.
+// staged as they lie with 16-byte cp.async copies into a ring of three
+// stages of 64 rows, in the 128-byte swizzle, and read by bf16 wgmma
+// through its transposed (MN-major) descriptors: 128 x 128 tiles (64 where
+// a dimension is 64), one warpgroup per 64 rows of i, one m64n64k16 per 64
+// columns of j, so that every descriptor spans one 64-wide atom.
 // Weight gradients have K = B*H*W rows: K is cut into a fixed number of
 // slices, each CTA writes an fp32 partial, and reduce_slices sums the
 // slices in order; dgamma/dbeta are summed over images in order.  No float
@@ -394,28 +393,29 @@ int dgrad_smem_bytes(int kb) {
 //   part[s, tap, i, j] = sum over rows r of slice s of P[r, i] * Q_tap[r, j]
 // Rows r = b*HW + p run over every pixel of every image; Q_tap[r] is Q at
 // pixel p shifted by the tap's (dy, dx) in image b, zero outside the image.
-// Both tiles are staged as they lie in memory (r-major, channels
-// contiguous) and read transposed by ldmatrix.
-constexpr int WG_BK = 32;      // rows of K per stage
-constexpr int WG_STAGES = 4;
+// Both tiles are staged as they lie in memory (rows r, 64-channel atoms of
+// 128 bytes in the 128-byte swizzle: MN-major), and wgmma reads them
+// transposed: warpgroup w takes rows i of atom w and issues one m64n64k16
+// per 64 columns of j.
+constexpr int WG_BK = 64;      // rows of K per stage
+constexpr int WG_STAGES = 3;
 
 template <int BI, int BJ>
 __host__ __device__ constexpr int wgrad_smem_bytes() {
-  return WG_STAGES * WG_BK * (BI + 8 + BJ + 8) * 2;
+  return WG_STAGES * (BI + BJ) / 64 * WG_BK * 128 + 1024;
 }
 
 template <int TAPS, int BI, int BJ>
-__global__ void __launch_bounds__(2 * BJ) wgrad_gemm(
+__global__ void __launch_bounds__(2 * BI) wgrad_gemm(
     const bf16* __restrict__ P, const bf16* __restrict__ Q,
     float* __restrict__ part, int Bn, int H, int W, int M, int N, int S) {
-  // Two warps along i, one per 32 columns along j: warp tiles of BI / 2
-  // rows (MF m16 fragments) by 32 columns.
-  constexpr int NTH = 2 * BJ;
-  constexpr int MF = BI / 32;
-  constexpr int PI = BI + 8, PJ = BJ + 8;  // row pitch in bf16 (+16 bytes)
-  constexpr int STAGE = WG_BK * (PI + PJ);
-  extern __shared__ __align__(16) char wsm_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(wsm_raw);
+  constexpr int NTH = 2 * BI;         // one warpgroup per 64 rows of i
+  constexpr int ATOM = WG_BK * 128;   // bytes: 64 channels x WG_BK rows
+  constexpr int AJ = BJ / 64;
+  constexpr int STAGE = (BI / 64 + AJ) * ATOM;
+  extern __shared__ char wsm_raw[];
+  char* sm = hopper::align1024(wsm_raw);
+  const uint32_t base = hopper::smem_u32(sm);
 
   const int j0 = blockIdx.x * BJ, i0 = blockIdx.y * BI;
   const int s = blockIdx.z / TAPS, tap = blockIdx.z % TAPS;
@@ -426,19 +426,22 @@ __global__ void __launch_bounds__(2 * BJ) wgrad_gemm(
   const int dy = TAPS == 9 ? tap / 3 - 1 : 0;
   const int dx = TAPS == 9 ? tap % 3 - 1 : 0;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wi = warp / (BJ / 32), wj = warp % (BJ / 32);
-  const int g = lane >> 2, t = lane & 3;
+  const int wg = tid >> 7;
 
+  // Chunk (row rr, 16-byte piece cc of the tile's row) of an MN-major
+  // stage: atom cc / 8, swizzled within it.
+  auto at = [](int rr, int cc) {
+    return (uint32_t)((cc >> 3) * ATOM + rr * 128 + (((cc & 7) ^ (rr & 7)) << 4));
+  };
   auto load = [&](int kt) {
-    bf16* ps = sm + (kt % WG_STAGES) * STAGE;
-    bf16* qs = ps + WG_BK * PI;
+    const uint32_t ps = base + (kt % WG_STAGES) * STAGE;
+    const uint32_t qs = ps + BI / 64 * ATOM;
     for (int c = tid; c < WG_BK * BI / 8; c += NTH) {
       const int rr = c / (BI / 8), cc = c % (BI / 8);
       const long long r = (long long)kt * WG_BK + rr;
       const bool ok = r < R;
-      hopper::cp_async16(hopper::smem_u32(ps + rr * PI + cc * 8),
-                         P + (ok ? r * M + i0 + cc * 8 : 0), ok ? 16 : 0);
+      hopper::cp_async16(ps + at(rr, cc), P + (ok ? r * M + i0 + cc * 8 : 0),
+                         ok ? 16 : 0);
     }
     for (int c = tid; c < WG_BK * BJ / 8; c += NTH) {
       const int rr = c / (BJ / 8), cc = c % (BJ / 8);
@@ -452,18 +455,15 @@ __global__ void __launch_bounds__(2 * BJ) wgrad_gemm(
         ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
         off = ((size_t)b * HW + yy * W + xx) * N + j0 + cc * 8;
       }
-      hopper::cp_async16(hopper::smem_u32(qs + rr * PJ + cc * 8),
-                         Q + (ok ? off : 0), ok ? 16 : 0);
+      hopper::cp_async16(qs + at(rr, cc), Q + (ok ? off : 0), ok ? 16 : 0);
     }
   };
 
-  float acc[MF][4][4];
+  float acc[AJ][32];
 #pragma unroll
-  for (int mf = 0; mf < MF; ++mf)
+  for (int aj = 0; aj < AJ; ++aj)
 #pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mf][nf][j] = 0.f;
+    for (int e = 0; e < 32; ++e) acc[aj][e] = 0.f;
 
 #pragma unroll
   for (int st = 0; st < WG_STAGES - 1; ++st) {
@@ -472,53 +472,42 @@ __global__ void __launch_bounds__(2 * BJ) wgrad_gemm(
   }
   for (int kt = kt0; kt < kt1; ++kt) {
     hopper::cp_async_wait<WG_STAGES - 2>();
+    hopper::fence_proxy_async();
     __syncthreads();
     if (kt + WG_STAGES - 1 < kt1) load(kt + WG_STAGES - 1);
     hopper::cp_async_commit();
-    const bf16* ps = sm + (kt % WG_STAGES) * STAGE;
-    const bf16* qs = ps + WG_BK * PI;
-    const int q8 = lane >> 3, r8 = lane & 7;
+    const uint32_t ps = base + (kt % WG_STAGES) * STAGE;
+    const uint32_t qs = ps + BI / 64 * ATOM;
 #pragma unroll
-    for (int ks = 0; ks < WG_BK; ks += 16) {
-      uint32_t af[MF][4], bfr[4][2];
+    for (int aj = 0; aj < AJ; ++aj) hopper::fence_operands(acc[aj]);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int mf = 0; mf < MF; ++mf)
-        hopper::ldsm_x4_trans(
-            af[mf], hopper::smem_u32(ps + (ks + r8 + (q8 >> 1) * 8) * PI +
-                                     wi * (BI / 2) + mf * 16 +
-                                     (q8 & 1) * 8));
+    for (int ks = 0; ks < WG_BK / 16; ++ks)
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        hopper::ldsm_x4_trans(
-            r, hopper::smem_u32(qs + (ks + r8 + (q8 & 1) * 8) * PJ +
-                                wj * 32 + np * 16 + (q8 >> 1) * 8));
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
+      for (int aj = 0; aj < AJ; ++aj)
+        hopper::wgmma_bf16_mn_n64(
+            acc[aj], hopper::sw128_mn_desc(ps + wg * ATOM + ks * 2048),
+            hopper::sw128_mn_desc(qs + aj * ATOM + ks * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int mf = 0; mf < MF; ++mf)
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf) mma16816(acc[mf][nf], af[mf], bfr[nf]);
-    }
+    for (int aj = 0; aj < AJ; ++aj) hopper::fence_operands(acc[aj]);
   }
   hopper::cp_async_wait<0>();
 
   float* out = part + ((size_t)s * TAPS + tap) * M * N;
 #pragma unroll
-  for (int mf = 0; mf < MF; ++mf)
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + hopper::acc_row(tid, half);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = i0 + wi * (BI / 2) + mf * 16 + g + half * 8;
+    for (int aj = 0; aj < AJ; ++aj)
 #pragma unroll
-      for (int nf = 0; nf < 4; ++nf) {
-        const int j = j0 + wj * 32 + nf * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out + (size_t)i * N + j) =
-            make_float2(acc[mf][nf][half * 2], acc[mf][nf][half * 2 + 1]);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = j0 + aj * 64 + hopper::acc_col(tid, jj);
+        *reinterpret_cast<float2*>(out + (size_t)i * N + j) = make_float2(
+            acc[aj][4 * jj + 2 * half], acc[aj][4 * jj + 2 * half + 1]);
       }
-    }
+  }
 }
 
 // out[(i*N + j)*TAPS + tap] = sum over s in order of part[s, tap, i, j]:
@@ -602,7 +591,7 @@ cudaError_t wgrad_tile(const bf16* P, const bf16* Q, float* part, int B,
   const cudaError_t e =
       hopper::allow_smem(wgrad_gemm<TAPS, BI, BJ>, smem, sized);
   if (e != cudaSuccess) return e;
-  wgrad_gemm<TAPS, BI, BJ><<<dim3(N / BJ, M / BI, S * TAPS), 2 * BJ,
+  wgrad_gemm<TAPS, BI, BJ><<<dim3(N / BJ, M / BI, S * TAPS), 2 * BI,
                              smem, st>>>(P, Q, part, B, H, W, M, N, S);
   return cudaGetLastError();
 }
@@ -633,7 +622,7 @@ cudaError_t wgrad(const bf16* P, const bf16* Q, float* part, int B, int H,
 // max(S1*F*C, S2*9*F*F, S3*C*F).  Outputs (fp32): dk1 [F,C], dk2 [F,F,3,3],
 // dk3 [C,F], dg*/db* [F] or [C].  S1..S3: K-slices of the dk1, dk2, dk3
 // wgrads.  Requires C % 64 == 0 and F % 64 == 0, GN groups of C/G3 and F/G1
-// channels that divide 64, and 1 <= S <= ceil(B*H*W/32) (checked by the
+// channels that divide 64, and 1 <= S <= ceil(B*H*W/64) (checked by the
 // Python wrapper).  Returns the first launch error (0 =
 // cudaSuccess).
 extern "C" int fused_bottleneck_bwd(

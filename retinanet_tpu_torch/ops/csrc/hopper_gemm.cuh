@@ -1,9 +1,9 @@
 // Hopper GEMM building blocks of kernels B3 (bottleneck_bwd.cu) and B6
 // (int8_conv.cu): 16-byte cp.async copies into a ring of shared-memory
 // stages (zero-filled where the source is outside the image), 128-byte
-// swizzled K-major tiles that wgmma reads through shared-memory descriptors,
-// ldmatrix for mma.sync operands, and the implicit-GEMM convolution mainloop
-// that B6's GEMM and B3's dgrad GEMMs share.  B1 and B5 do not include it:
+// swizzled tiles that wgmma reads through shared-memory descriptors, and the
+// implicit-GEMM convolution mainloop that B6's GEMM and B3's dgrad GEMMs
+// share.  B1 and B5 do not include it:
 // they keep bottleneck_common.cuh's conv_gemm.
 //
 // The convolution mainloop computes a 128 x BN tile of
@@ -132,25 +132,27 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// Descriptor of an MN-major tile in the 128-byte swizzle that spans one
+// 64-wide atom along M or N: rows along K of 64 bf16 (128 bytes), 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8), 8-row groups 1024 bytes
+// apart.  That stride is the stride byte offset; the leading byte offset
+// (the stride between atoms along M or N) never applies to one atom, and
+// carries the same 1024.
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(64) << 16) | (static_cast<uint64_t>(64) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 // Byte offset of 16-byte chunk c of row r in a swizzled [rows][128 B] tile.
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// Four transposed 8x8 b16 matrices: lanes 8q..8q+7 address the rows of
-// matrix q, and each thread receives column (lane / 4) of rows 2*(lane % 4)
-// and 2*(lane % 4) + 1 of each.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// wgmma m64nNk32 s8 x s8 -> s32 and m64nNk16 bf16 x bf16 -> f32, both
-// operands K-major in shared memory, D += A * B.  The accumulator array's
-// type and length pick the instruction.
+// wgmma m64nNk32 s8 x s8 -> s32 and m64nNk16 bf16 x bf16 -> f32, D += A *
+// B from shared memory: both operands K-major (wgmma: the accumulator
+// array's type and length pick the instruction), or both MN-major
+// (wgmma_bf16_mn_n64, bf16 only).
 __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32],
     uint64_t a, uint64_t b) {
   asm volatile(
@@ -304,6 +306,27 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_mn_n64(float (&d)[32],
+    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
 }
 
