@@ -314,22 +314,26 @@ using namespace b6_int8_conv;
 // One int8 convolution, its three launches in order; `which` selects them
 // (bit 0 int8_amax, bit 1 int8_quantize, bit 2 int8_conv_gemm), so that a
 // caller can time the GEMM alone.
-//   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq [B,H,W,C] s8 scratch;
+//   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq: B*H*W*C s8 of scratch;
 //   scratch: AMAX_MAX_CTAS + 2 words: per-CTA maxima, the ticket (0 on
 //   entry, left 0), then s_x (fp32);
 //   wq [F, ks*ks*C] s8 (tap-major k); sw [F] and bias [F] fp32 (bias read
 //   only when has_bias; may be null otherwise);
 //   out [B,Ho,Wo,F] bf16 (out_code 0) or fp32 (1); bn in {64, 128, 256}
-//   divides F.
+//   divides F;
+//   geom: in_code, B, H, W, C, F, ks, stride, pad_t, pad_l, Ho, Wo,
+//   out_code (13 ints, one array per conv geometry, kept by the caller).
 // Requires C % 64 == 0 and F % 64 == 0 (checked by the Python wrapper).
 // Returns the first launch error (0 = cudaSuccess).
-extern "C" int int8_conv_forward(const void* x, int in_code, void* xq,
-                                 void* scratch, const void* wq,
-                                 const void* sw, const void* bias, void* out,
-                                 int B, int H, int W, int C, int F, int ks,
-                                 int stride, int pad_t, int pad_l, int Ho,
-                                 int Wo, int out_code, int has_bias, int relu,
+extern "C" int int8_conv_forward(const void* x, void* xq, void* scratch,
+                                 const void* wq, const void* sw,
+                                 const void* bias, void* out,
+                                 const int* geom, int has_bias, int relu,
                                  int bn, int which, void* stream) {
+  const int in_code = geom[0], B = geom[1], H = geom[2], W = geom[3],
+            C = geom[4], F = geom[5], ks = geom[6], stride = geom[7],
+            pad_t = geom[8], pad_l = geom[9], Ho = geom[10], Wo = geom[11],
+            out_code = geom[12];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned* partial = static_cast<unsigned*>(scratch);
   unsigned* ticket = partial + AMAX_MAX_CTAS;

@@ -39,16 +39,20 @@ from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("int8_conv.cu", {
-    "int8_conv_forward": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 16 + [_P],
+    "int8_conv_forward": [_P] * 8 + [_I] * 4 + [_P],
 })
 
 # Input and output dtypes the kernels take, by the code the C side reads.
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # Scratch of the wrapper, one pair per device and stream (launches on one
 # stream run in order, so they never share it): int8_amax's AMAX_MAX_CTAS
-# per-CTA maxima, the ticket word (zero between launches) and s_x; and the
-# x_q buffer, grown to the largest x seen.
+# per-CTA maxima, the ticket word (zero between launches) and s_x; and an
+# x_q buffer of _XQ_BYTES, which spares the host an allocation for every x
+# that fits (at batch 8, all of the flagship's).  A larger x_q, whose
+# conv takes far longer on the card than its allocation on the host, is
+# allocated per call, so the buffer never holds more than _XQ_BYTES.
 _AMAX_CTAS = 1024
+_XQ_BYTES = 64 << 20
 _SCRATCH: Dict[Tuple[int, int], Tuple[Tensor, Tensor]] = {}
 # int8_conv_forward's launches, as bits of its ``which``.
 AMAX, QUANTIZE, GEMM = 1, 2, 4
@@ -163,16 +167,18 @@ def scratch(device: torch.device, stream: Optional[int] = None,
             x_bytes: int = 0) -> Tuple[Tensor, Tensor]:
     """(``int8_amax``'s scratch, an int8 x_q buffer of at least
     ``x_bytes``) of this device and stream (default: the current one); s_x
-    is the first one's last word, as fp32."""
+    is the first one's last word, as fp32.  The x_q buffer is the shared
+    one up to ``_XQ_BYTES``, else a new one."""
     key = (device.index, current_stream(device) if stream is None
            else stream)
-    work, x_q = _SCRATCH.get(key, (None, None))
-    if work is None:
-        work = torch.zeros(_AMAX_CTAS + 2, dtype=torch.int32, device=device)
-    if x_q is None or x_q.numel() < x_bytes:
-        x_q = torch.empty(x_bytes, dtype=torch.int8, device=device)
-    _SCRATCH[key] = work, x_q
-    return work, x_q
+    pair = _SCRATCH.get(key)
+    if pair is None:
+        pair = _SCRATCH[key] = (
+            torch.zeros(_AMAX_CTAS + 2, dtype=torch.int32, device=device),
+            torch.empty(_XQ_BYTES, dtype=torch.int8, device=device))
+    if x_bytes <= _XQ_BYTES:
+        return pair
+    return pair[0], torch.empty(x_bytes, dtype=torch.int8, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,9 +186,10 @@ def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
               k_shape: Tuple[int, ...], strides: int,
               out_dtype: torch.dtype):
     """Checks one conv's shapes and dtypes, once per geometry, and returns
-    ``int8_conv_forward``'s integer arguments: (in_code, (B, H, W, C, F,
-    k, stride, pad_t, pad_l, Ho, Wo, out_code), the ``tile_n`` tile, the
-    output's shape)."""
+    (the address of ``int8_conv_forward``'s ``geom`` array: in_code, B, H,
+    W, C, F, k, stride, pad_t, pad_l, Ho, Wo, out_code; the array; the
+    ``tile_n`` tile; the output's shape).  The cache keeps the array
+    alive."""
     bsz, h, w, c = x_shape
     f, cin, kh, kw = k_shape
     if cin != c or kh != kw or kh not in (1, 3) or strides not in (1, 2):
@@ -198,9 +205,10 @@ def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
     ho, wo = -(-h // strides), -(-w // strides)
     top, _ = same_padding(h, kh, strides)
     left, _ = same_padding(w, kh, strides)
-    return (_DTYPE_CODES[x_dtype],
-            (bsz, h, w, c, f, kh, strides, top, left, ho, wo,
-             _DTYPE_CODES[out_dtype]),
+    geom = (ctypes.c_int * 13)(_DTYPE_CODES[x_dtype], bsz, h, w, c, f, kh,
+                               strides, top, left, ho, wo,
+                               _DTYPE_CODES[out_dtype])
+    return (ctypes.addressof(geom), geom,
             tile_n(f, bsz * ho * wo, kh * kh * c), (bsz, ho, wo, f))
 
 
@@ -215,12 +223,12 @@ def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
     GEMM alone reads the x_q and s_x a previous call left), ``bn`` the
     tile (default ``tile_n``), ``stream`` the CUDA stream (default: the
     current one)."""
-    in_code, ints, tile, _ = _geometry(x.shape, x.dtype, weights.shape,
-                                       strides, out.dtype)
-    LIB.call("int8_conv_forward", x.data_ptr(), in_code, x_q.data_ptr(),
+    geom, _, tile, _ = _geometry(x.shape, x.dtype, weights.shape, strides,
+                                 out.dtype)
+    LIB.call("int8_conv_forward", x.data_ptr(), x_q.data_ptr(),
              work.data_ptr(), weights.w_q.data_ptr(), weights.s_w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
-             *ints, int(bias is not None), int(relu), bn or tile, which,
+             geom, int(bias is not None), int(relu), bn or tile, which,
              stream or current_stream(x.device))
 
 
