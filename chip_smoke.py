@@ -42,7 +42,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    59 B6 launches and no B1/B5; a second forward profiled: three B6
    kernels per conv and no weight quantized again; heads vs the int8
    plain path; then B6 at every distinct int8 conv shape that run gave,
-   bitwise, with weights quantized in the call and prepared;
+   bitwise, with weights quantized in the call and prepared; at odd
+   sides (stride 2 padding both sides) and fp32 in and out;
 10. ``fused_proj`` serving: 12 B1 + 1 B5 launches per forward, heads vs
    the unfused plain path;
 11. entry points: ``GroupNorm(use_kernel=True)`` on the P3/P4 head
@@ -59,8 +60,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    from a profile, at batch 8 and at batch 32 on res2; B6 per conv shape
    three ways (the whole conv with prepared weights; its launches, and
    its GEMM alone, queued behind a sleep kernel so that only device time
-   counts, beside ``torch._int_mm`` on the same quantized operands), and
-   the GEMM at each output tile;
+   counts, beside ``torch._int_mm`` on the same quantized operands);
 13. breakdown: ``torch.profiler`` device time by kernel group, idle share
    and kernels per call: serving at batch 8 and 128 (kernel, int8 and
    plain paths) and training at batch 8 and 32 (``utils/profiling.py``).
@@ -624,7 +624,8 @@ def int8_case(key, gen, device):
 
 def check_b6(device, shapes) -> float:
     """B6 vs its plain version at every distinct int8 conv shape of the
-    640-px flagship at batch 8: bitwise equal and repeatable."""
+    640-px flagship at batch 8 (bitwise equal and repeatable), at odd
+    sides, fp32 in and out, and through ``int8_conv3x3``."""
     gen = torch.Generator().manual_seed(9)
     for key, count in sorted(shapes.items()):
         x, kernel = int8_case(key, gen, device)
@@ -646,6 +647,27 @@ def check_b6(device, shapes) -> float:
             raise AssertionError(f"B6 differs from its plain version at "
                                  f"{key}")
         del x, kernel, ref, out, again
+    # Odd sides (a 600-px input's 75x57 res3 plane): stride 2 pads one row
+    # and column on each side; and fp32 in and out.
+    for key, dtype in (((2, 75, 57, 64, 64, 3, 2), torch.bfloat16),
+                       ((2, 75, 57, 64, 64, 3, 1), torch.bfloat16),
+                       ((2, 75, 57, 64, 64, 1, 2), torch.bfloat16),
+                       ((2, 75, 57, 64, 128, 3, 2), torch.float32)):
+        x, kernel = int8_case(key, gen, device)
+        x = x.to(dtype)
+        s = key[-1]
+        ref = b6.int8_conv_plain(x, kernel, s, dtype)
+        out = b6.int8_conv(x, kernel, s)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        log("b6-check", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
+            dtype=str(dtype), out=list(out.shape),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            bitwise_equal=equal)
+        if not equal or out.dtype != dtype:
+            raise AssertionError(f"B6 differs from its plain version at "
+                                 f"{key}, {dtype}")
+        del x, kernel, ref, out
     # The JAX entry point, with bias and relu, at a head conv's shape.
     x, kernel = int8_case((8, 80, 80, 256, 256, 3, 1), gen, device)
     w = kernel.permute(2, 3, 1, 0)
@@ -1070,12 +1092,10 @@ def time_kernels(device):
         x, params = block_inputs(8, h, w, c, f, gen, device)
         dout = torch.randn(8, h, w, c, generator=gen).to(
             torch.bfloat16).to(device)
-        wts = b3.prepare_weights(params[0], params[3], params[6])
         for key, passes, kernel, plain in (
                 ("b1", 1, lambda: b1.fused_bottleneck(x, *params),
                  lambda: b1.fused_bottleneck_plain(x, *params)),
-                ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params,
-                                                          weights=wts),
+                ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params),
                  lambda: b3.fused_bottleneck_bwd_plain(x, dout, *params))):
             k_ms = cuda_time_ms(kernel, 10)
             p_ms = cuda_time_ms(plain, 5)
@@ -1089,13 +1109,13 @@ def time_kernels(device):
             t["bound_ms"] += count * bound
             t["t_op"] += count * (bound if by == "operations" else 0.0)
         split, kernels = b3_groups(lambda: b3.fused_bottleneck_bwd(
-            x, dout, *params, weights=wts))
+            x, dout, *params))
         log("b3-split", stage=name, batch=8, launches_and_ms=split,
             by_kernel=kernels)
         for g, (n, ms) in split.items():
             total = groups.get(g, (0.0, 0.0))
             groups[g] = (total[0] + count * n, total[1] + count * ms)
-        del x, params, dout, wts
+        del x, params, dout
     log("b3-split-total", batch=8, blocks=12,
         launches_and_ms={g: list(v) for g, v in groups.items()})
     for t in timing.values():
@@ -1106,16 +1126,16 @@ def time_kernels(device):
     x, params = block_inputs(32, h, w, c, f, gen, device)
     dout = torch.randn(32, h, w, c, generator=gen).to(torch.bfloat16).to(
         device)
-    wts = b3.prepare_weights(params[0], params[3], params[6])
+
     def call():
-        b3.fused_bottleneck_bwd(x, dout, *params, weights=wts)
+        b3.fused_bottleneck_bwd(x, dout, *params)
 
     k_ms = cuda_time_ms(call, 5)
     bound, by = block_bound(32, h, w, c, f, 3)
     log("b3-time", stage=name, batch=32, kernel_ms=k_ms, bound_ms=bound,
         bound_by=by, blocks_per_step=count,
         launches_and_ms=b3_groups(call)[0])
-    del x, params, dout, wts
+    del x, params, dout
     for shape in ((8, 1000), (1, 1000)):
         boxes = clustered_boxes(*shape, gen).to(device)
         single = shape[0] == 1
@@ -1164,8 +1184,7 @@ def time_b6(device, int8_shapes, gen):
     device's time counts, its three launches alone on preallocated
     buffers (``launches_ms``) and the GEMM launch alone (``gemm_ms``),
     with ``torch._int_mm`` beside the GEMM on the same quantized operands
-    for the 1×1 stride-1 convs (queued too); the GEMM at each output tile;
-    the plain version.  Summed over the 59 convs (``check_int8_serving``
+    for the 1×1 stride-1 convs (queued too); the plain version.  Summed over the 59 convs (``check_int8_serving``
     counts the kernels per conv)."""
     t = dict(ms=0.0, launches_ms=0.0, gemm_ms=0.0, plain_ms=0.0,
              bound_ms=0.0, t_op=0.0)
@@ -1179,27 +1198,25 @@ def time_b6(device, int8_shapes, gen):
         out = torch.empty(b, ho, wo, f, dtype=torch.bfloat16, device=device)
         work = b6.scratch(device)[0]
 
-        def run(which=b6.AMAX | b6.QUANTIZE | b6.GEMM, bn=None):
-            return lambda: b6.launch(x, x_q, work, wts, out, s, which=which,
-                                     bn=bn)
+        def run(which=b6.AMAX | b6.QUANTIZE | b6.GEMM):
+            return lambda: b6.launch(x, x_q, work, wts, out, s, which=which)
 
         k_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s, weights=wts),
                             10)
         # leaves x_q and s_x for the GEMM alone
         l_ms = cuda_time_ms(run(), 10, queued=True)
-        tiles = {bn: cuda_time_ms(run(b6.GEMM, bn), 10, queued=True)
-                 for bn in (64, 128, 256) if f % bn == 0}
-        g_ms = tiles[b6.tile_n(f, b * ho * wo, k * k * c)]
+        g_ms = cuda_time_ms(run(b6.GEMM), 10, queued=True)
         p_ms = cuda_time_ms(lambda: b6.int8_conv_plain(
             x, kernel, s, torch.bfloat16), 2, warmup=1)
+        # x and y bf16, the prepared weights int8 w_q and fp32 s_w
         ms, by = bound(2 * b * ho * wo * k * k * c * f,
                        (b * h * w * c + b * ho * wo * f) * 2
-                       + k * k * c * f * 4, PEAK_INT8)
+                       + k * k * c * f + 4 * f, PEAK_INT8)
         i_ms = int_mm_ms(x_q, wts) if (k, s) == (1, 1) else None
         log("b6-time", shape=[b, h, w, c], F=f, k=k, stride=s,
             tile_n=b6.tile_n(f, b * ho * wo, k * k * c),
             convs_per_forward=count, conv_ms=k_ms, launches_ms=l_ms,
-            gemm_ms=g_ms, gemm_ms_by_tile=tiles, int_mm_ms=i_ms,
+            gemm_ms=g_ms, int_mm_ms=i_ms,
             plain_ms=p_ms, bound_ms=ms, bound_by=by)
         for name, v in (("ms", k_ms), ("launches_ms", l_ms),
                         ("gemm_ms", g_ms), ("plain_ms", p_ms),

@@ -19,7 +19,6 @@ stays float.  Everything else runs the plain layers.
 from __future__ import annotations
 
 import logging
-from functools import partial
 from typing import Dict, Union
 
 import torch
@@ -29,9 +28,7 @@ from torch import Tensor, nn
 from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
 from retinanet_tpu_torch.ops.bottleneck import (fused_bottleneck,
                                                 fused_bottleneck_proj)
-from retinanet_tpu_torch.ops.bottleneck_bwd import (fused_bottleneck_train,
-                                                    prepare_weights)
-from retinanet_tpu_torch.ops.cuda import ParameterCache
+from retinanet_tpu_torch.ops.bottleneck_bwd import fused_bottleneck_train
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +60,6 @@ class ResNetBottleneck(nn.Module):
                          quantize=quantize)]
         for i, conv in enumerate(convs):
             self.add_module(f"ConvGN_{i}", conv)
-        # B3's weight layouts, kept per version of the three kernels.
-        self._bwd_weights = ParameterCache(prepare_weights)
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:
         convs = list(self.children())
@@ -78,9 +73,7 @@ class ResNetBottleneck(nn.Module):
         else:
             fused = (bf16 and x.shape[1] == self.filters * 4
                      and (self.fused_train if training else self.fused))
-            block = (partial(fused_bottleneck_train,
-                             weights=self._bwd_weights)
-                     if training else fused_bottleneck)
+            block = fused_bottleneck_train if training else fused_bottleneck
             order = convs
         if fused:
             params = []

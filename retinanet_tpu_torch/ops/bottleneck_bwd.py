@@ -11,14 +11,13 @@ between ops (dn3, dn2, dn1 and each GN backward's dy), products accumulated
 in fp32, GN sums and every parameter gradient in fp32.
 
 The kernel reads six bf16 layouts of the three conv kernels (``w1``,
-``w1t``, ``w2``, ``w2r``, ``w3``, ``w3t``: ``BlockWeights``);
-``prepare_weights`` builds them, and a caller that keeps them per
-parameter version (``ParameterCache``) passes them as ``weights=``, as
-``ResNetBottleneck(fused_train=True)`` does.  The CUDA kernel recomputes
-y1..y3 with B1's own GEMM (bitwise B1's forward), writes the relu(GN
-affine) planes a1, a2 once, and runs its dgrad GEMMs on wgmma and its
-weight-gradient GEMMs on ``ldmatrix``-fed tiles from a ring of
-asynchronous copies (the source note of ``csrc/bottleneck_bwd.cu``).
+``w1t``, ``w2``, ``w2r``, ``w3``, ``w3t``), which ``prepare_weights``
+builds on every call: the optimizer updates the kernels in place after
+every step, so a copy kept between calls would be rebuilt each time.  The
+CUDA kernel recomputes y1..y3 with B1's own GEMM (bitwise B1's forward),
+writes the relu(GN affine) planes a1, a2 once, and runs its dgrad and
+weight-gradient GEMMs on wgmma from a ring of asynchronous copies (the
+source note of ``csrc/bottleneck_bwd.cu``).
 
 ``FusedBottleneckTrain`` (``fused_bottleneck_train``) is the autograd
 Function of the training path: its forward is B1 (``ops/bottleneck.py``)
@@ -30,7 +29,7 @@ kernels and GN vectors in fp32, ``dx`` bf16 NHWC.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -221,26 +220,17 @@ def fused_bottleneck_bwd_plain(x: Tensor, dout: Tensor, k1: Tensor,
             dg3.sum(0), db3.sum(0))
 
 
-class BlockWeights(NamedTuple):
-    """The bf16 layouts B3 reads: w1 [F,C] and w1t [C,F]; w2 [F,9F] (out,
-    tap, in) and w2r [F,9F] (in, reversed tap, out) for conv2's dgrad; w3
-    [C,F] and w3t [F,C]."""
-    w1: Tensor
-    w1t: Tensor
-    w2: Tensor
-    w2r: Tensor
-    w3: Tensor
-    w3t: Tensor
-
-
-def prepare_weights(k1: Tensor, k2: Tensor, k3: Tensor) -> BlockWeights:
-    """B3's six weight layouts of the OIHW kernels k1 [F,C,1,1], k2
-    [F,F,3,3], k3 [C,F,1,1]."""
+def prepare_weights(k1: Tensor, k2: Tensor, k3: Tensor
+                    ) -> Tuple[Tensor, ...]:
+    """B3's six bf16 weight layouts of the OIHW kernels k1 [F,C,1,1], k2
+    [F,F,3,3], k3 [C,F,1,1]: w1 [F,C] and w1t [C,F]; w2 [F,9F] (out, tap,
+    in) and w2r [F,9F] (in, reversed tap, out) for conv2's dgrad; w3 [C,F]
+    and w3t [F,C]."""
     bf = torch.bfloat16
     f, c = k1.shape[:2]
     w1 = k1.reshape(f, c).to(bf).contiguous()
     w3 = k3.reshape(c, f).to(bf).contiguous()
-    return BlockWeights(
+    return (
         w1, w1.t().contiguous(),
         k2.to(bf).permute(0, 2, 3, 1).reshape(f, 9 * f).contiguous(),
         k2.to(bf).flip(2, 3).permute(1, 2, 3, 0).reshape(f, 9 * f)
@@ -266,8 +256,7 @@ def _slices(rows_m: int, cols_n: int, taps: int, k_rows: int) -> int:
 def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
                          b1: Tensor, k2: Tensor, g2: Tensor, b2: Tensor,
                          k3: Tensor, g3: Tensor, b3: Tensor,
-                         eps: float = 1e-5, return_forward: bool = False,
-                         weights: Optional[BlockWeights] = None
+                         eps: float = 1e-5, return_forward: bool = False
                          ) -> Union[Grads, Tuple[Grads, Forward]]:
     """Gradients of ``fused_bottleneck`` with respect to every input.
 
@@ -277,9 +266,7 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     fp32 in the parameters' shapes.  On CUDA, C and F must be multiples of
     64.  ``return_forward`` also returns the forward the backward
     recomputed (a ``Forward``: bf16 y1..y3, fp32 GN mean/inv), for holding
-    the plain version to the same relu masks.  ``weights``: the kernels'
-    ``prepare_weights``, kept by the caller; without it they are laid out
-    here.
+    the plain version to the same relu masks.
     """
     if not x.is_cuda:
         grads = fused_bottleneck_bwd_plain(x, dout, k1, g1, b1, k2, g2, b2,
@@ -314,16 +301,7 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     check_cuda(dout, "dout", torch.bfloat16)
     bf, f32 = torch.bfloat16, torch.float32
     dev = x.device
-    if weights is None:
-        weights = prepare_weights(k1, k2, k3)
-    for name, t, shape in zip(BlockWeights._fields, weights,
-                              ((f, c), (c, f), (f, 9 * f), (f, 9 * f),
-                               (c, f), (f, c))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"prepared {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        check_cuda(t, name, bf)
-    w1, w1t, w2, w2r, w3, w3t = weights
+    w1, w1t, w2, w2r, w3, w3t = prepare_weights(k1, k2, k3)
     gb = [t.float().contiguous() for t in affines]
     hw = h * w
     rows = bsz * hw
@@ -383,19 +361,14 @@ fused_bottleneck_bwd.launches = 0
 
 class FusedBottleneckTrain(torch.autograd.Function):
     """Identity bottleneck for training: B1 forward, B3 backward.  Saves
-    only the primals; the backward recomputes every intermediate.
-    ``weights`` maps (k1, k2, k3) to their ``BlockWeights`` (a
-    ``ParameterCache`` of ``prepare_weights``) or is None."""
+    only the primals; the backward recomputes every intermediate."""
 
     @staticmethod
     def forward(ctx, x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                 k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor, g3: Tensor,
-                b3: Tensor, eps: float = 1e-5,
-                weights: Optional[Callable[..., BlockWeights]] = None
-                ) -> Tensor:
+                b3: Tensor, eps: float = 1e-5) -> Tensor:
         ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, k3, g3, b3)
         ctx.eps = eps
-        ctx.weights = weights
         return fused_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, eps)
 
     @staticmethod
@@ -403,21 +376,16 @@ class FusedBottleneckTrain(torch.autograd.Function):
         # dout arrives as a view of an NCHW gradient: make it contiguous
         # NHWC, as the kernel reads it.
         x, *params = ctx.saved_tensors
-        k1, k2, k3 = params[0], params[3], params[6]
-        weights = (ctx.weights(k1, k2, k3)
-                   if ctx.weights is not None and x.is_cuda else None)
         dx, *dparams = fused_bottleneck_bwd(x, dout.contiguous(), *params,
-                                            eps=ctx.eps, weights=weights)
-        return (dx, *dparams, None, None)
+                                            eps=ctx.eps)
+        return (dx, *dparams, None)
 
 
 def fused_bottleneck_train(x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                            k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor,
-                           g3: Tensor, b3: Tensor, eps: float = 1e-5,
-                           weights: Optional[Callable[..., BlockWeights]]
-                           = None) -> Tensor:
+                           g3: Tensor, b3: Tensor, eps: float = 1e-5
+                           ) -> Tensor:
     """``fused_bottleneck`` with the hand-written backward as its
-    gradient (the JAX package's custom VJP); ``weights`` as in
-    ``FusedBottleneckTrain``."""
+    gradient (the JAX package's custom VJP)."""
     return FusedBottleneckTrain.apply(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
-                                      eps, weights)
+                                      eps)

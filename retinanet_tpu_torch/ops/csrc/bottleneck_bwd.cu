@@ -28,8 +28,8 @@
 //          same K order and k16 steps as B1, so y1..y3 and the relu masks
 //          are B1's bit for bit); the finalize also writes fp32 mean and
 //          inv-std.  relu_planes then writes a1 = bf16(relu(GN1 affine(y1)))
-//          and a2 = bf16(relu(GN2 affine(y2))) once, the value the wgrad
-//          prologue used to recompute for every tap.
+//          and a2 = bf16(relu(GN2 affine(y2))) once, for the weight
+//          gradients' nine taps and one to read.
 //   P4     elementwise output mask -> dn3, per-CTA (sum d, sum d*yhat)
 //   GN3    fixed-order finalize (one CTA per image and 64 channels) -> t1,
 //          t2, per-image dgamma3/dbeta3; dy3

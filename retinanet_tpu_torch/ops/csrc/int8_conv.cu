@@ -20,7 +20,7 @@
 //      kernel multiplied by 1/s_x): x * (1/s_x) gives the same integer
 //      except within ~3e-5 of a half-integer, where the kernel divides
 //      (__fdiv_rn); rintf rounds half to even like jnp.round.  A division
-//      per element made this pass compute-bound.
+//      per element would make this pass compute-bound.
 //   3. int8_conv_gemm: implicit GEMM, M = B*Ho*Wo output pixels (all images
 //      in one M), N = F, K = k*k*C tap-major, through hopper_gemm.cuh's
 //      mainloop: 128 x BN tiles (BN = 64, 128 or 256 by F, the grid and K:
@@ -43,12 +43,12 @@
 // reading x (bf16) and writing y (bf16) sets the bound for nearly all of
 // them.  Three passes read x: int8_amax (2 bytes per element), the
 // quantize pass (2, and 1 written) and the GEMM (1, up to nine times for a
-// 3x3 conv, from L2).  Quantizing inside the GEMM's A producer, for the
-// 1x1 convs where each x element is read once per output tile, was tried:
-// loading bf16 x through registers and dividing there held the GEMM's
-// pipeline up, and the three launches stayed faster.  At batch 8 most
-// convs are a few tens of microseconds, so the host's three launches per
-// conv set the pace of a whole conv.  Compile with -fmad=false (the
+// 3x3 conv, from L2).  Quantizing inside the GEMM's A producer instead,
+// for the 1x1 convs where each x element is read once per output tile, is
+// slower: loading bf16 x through registers and dividing there holds the
+// GEMM's pipeline up.  At batch 8 most convs take a few tens of
+// microseconds, so the host's three launches per conv set the pace of a
+// whole conv.  Compile with -fmad=false (the
 // epilogue's multiply and add each round).
 
 #include <cuda_bf16.h>

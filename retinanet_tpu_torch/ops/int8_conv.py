@@ -134,15 +134,6 @@ def int8_conv_plain(x: Tensor, kernel: Tensor, strides: int = 1,
     return _conv_quantized_plain(x, w_q, s_w, strides, out_dtype, bias, relu)
 
 
-def activation_scale_plain(x: Tensor) -> Tensor:
-    """Plain counterpart of ``int8_amax``'s arithmetic: the largest |x|
-    (exact in any order), then max(·, 1e-8) / 127 in fp32 with a true
-    division."""
-    amax = x.float().abs().amax()
-    return (torch.maximum(amax, torch.full_like(amax, 1e-8))
-            / torch.full_like(amax, 127.0))
-
-
 def tile_n(f: int, m: int, k: int) -> int:
     """B6's output-channel tile for F channels, M output pixels and K
     bytes of reduction: the widest of 256, 128, 64 that divides F and
@@ -215,20 +206,18 @@ def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
 def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
            out: Tensor, strides: int, bias: Optional[Tensor] = None,
            relu: bool = False, which: int = AMAX | QUANTIZE | GEMM,
-           bn: Optional[int] = None, stream: Optional[int] = None) -> None:
+           stream: Optional[int] = None) -> None:
     """B6's launches on x [B,H,W,C] into out [B,Ho,Wo,F] (bf16 or fp32),
     with x_q (int8, at least x's size) and ``work`` (``scratch``) as
-    scratch;
-    ``bias`` contiguous fp32 or None.  ``which`` picks the launches (the
-    GEMM alone reads the x_q and s_x a previous call left), ``bn`` the
-    tile (default ``tile_n``), ``stream`` the CUDA stream (default: the
-    current one)."""
+    scratch; ``bias`` contiguous fp32 or None.  ``which`` picks the
+    launches (the GEMM alone reads the x_q and s_x a previous call left),
+    ``stream`` the CUDA stream (default: the current one)."""
     geom, _, tile, _ = _geometry(x.shape, x.dtype, weights.shape, strides,
                                  out.dtype)
     LIB.call("int8_conv_forward", x.data_ptr(), x_q.data_ptr(),
              work.data_ptr(), weights.w_q.data_ptr(), weights.s_w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
-             geom, int(bias is not None), int(relu), bn or tile, which,
+             geom, int(bias is not None), int(relu), tile, which,
              stream or current_stream(x.device))
 
 

@@ -22,13 +22,21 @@ from retinanet_tpu.ops.pallas.int8_conv import int8_conv3x3 as jax_conv3x3
 from retinanet_tpu_torch.export import params_from_flax
 from retinanet_tpu_torch.models.layers import Conv
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
-from retinanet_tpu_torch.ops.int8_conv import (activation_scale_plain,
-                                               int8_conv, int8_conv3x3,
+from retinanet_tpu_torch.ops.int8_conv import (int8_conv, int8_conv3x3,
                                                int8_conv_plain,
                                                prepare_weights,
                                                quantize_activations)
 
 torch.set_num_threads(2)
+
+
+def activation_scale_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain counterpart of ``int8_amax``'s arithmetic: the largest |x|
+    (exact in any order), then max(·, 1e-8) / 127 in fp32 with a true
+    division."""
+    amax = x.float().abs().amax()
+    return (torch.maximum(amax, torch.full_like(amax, 1e-8))
+            / torch.full_like(amax, 127.0))
 
 
 @pytest.mark.parametrize("prepared", [False, True])
