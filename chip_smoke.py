@@ -11,7 +11,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    together; ptxas register/smem/spill lines;
 3. B1 check: fused bottleneck kernel vs its plain version at the four
    stage shapes of the 640-px flagship (batch 2 and 8, randomized GN
-   γ/β), and bitwise repeatability;
+   γ/β), bitwise repeatability, and its kernels per call (4, and no
+   other kernel with the weight layouts made beforehand);
 4. B2 check: NMS keep-mask kernel vs the plain greedy mask on clustered,
    class-offset boxes with parked invalids: exactly equal;
 5. B3 check: fused bottleneck backward kernel vs its plain version at the
@@ -20,8 +21,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    against the plain version run on the kernel's own recomputed forward
    (the same relu masks), ‖Δ‖₂/‖ref‖₂ and correlation against the plain
    version's own recompute, the share of relu decisions the two
-   recomputes flip, accuracy against the float64 gradient, and bitwise
-   repeatability;
+   recomputes flip, accuracy against the float64 gradient, bitwise
+   repeatability, and its recomputed forward (y1..y3, GN statistics)
+   bitwise B1's (``return_forward=True`` on both);
 6. serving path: resnet_50_dense RetinaNet at 640 px, 80 classes, bf16,
    seeded random weights, through ``Detector`` at batch 8, at the default
    NMSConfig and at score_threshold 0.005; launch counts, head outputs vs
@@ -39,7 +41,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    bitwise; each bitwise repeatable;
 9. int8 serving: the flagship with ``quantize="int8"`` (and the fused
    flags, which the int8 gate ignores) through ``Detector`` at batch 8:
-   59 B6 launches and no B1/B5; a second forward profiled: three B6
+   59 B6 launches and no B1/B5; every weight scale s_w the correctly
+   rounded quotient amax / 127; a second forward profiled: three B6
    kernels per conv and no weight quantized again; heads vs the int8
    plain path; then B6 at every distinct int8 conv shape that run gave,
    bitwise, with weights quantized in the call and prepared; at odd
@@ -56,8 +59,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    at batch 8 and 32; each kernel vs its plain version (and a PyTorch
    call computing the same function, where one exists) at the paths'
    shapes (CUDA events after warmup), with its bound at the card's
-   published peaks.  B3 also by launch group (``B3_GROUPS``) and kernel
-   from a profile, at batch 8 and at batch 32 on res2; B6 per conv shape
+   published peaks.  B1 by launch group (``B1_GROUPS``: the three GEMMs,
+   the residual pass, host copies) per stage; B3 by launch group
+   (``B3_GROUPS``) and kernel from a profile, at batch 8 and at batch 32
+   on res2; B6 per conv shape
    three ways (the whole conv with prepared weights; its launches, and
    its GEMM alone, queued behind a sleep kernel so that only device time
    counts, beside ``torch._int_mm`` on the same quantized operands);
@@ -68,9 +73,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,
 entry,serving,training,timing,breakdown``) and prints no result lines:
 for a first call after a kernel change.  ``--phases parent`` (not in the
-default run) compares B3's recomputed forward and B6 with a parent
-commit's: put that commit's ``ops/bottleneck_bwd.py``, ``ops/int8_conv.py``
-and ``ops/csrc/{bottleneck_bwd.cu,bottleneck_common.cuh,int8_conv.cu}`` in
+default run) compares B1, B5 and B6 with a parent commit's: B1 and B5
+within B1's bound, timed in turns and B1 by launch group; B6 bitwise given
+the same s_x and weights.  Put that commit's ``ops/bottleneck.py``,
+``ops/int8_conv.py`` and ``ops/csrc/{bottleneck.cu,bottleneck_proj.cu,
+bottleneck_common.cuh,hopper_gemm.cuh,int8_conv.cu}`` in
 ``parent_kernels/`` (git-ignored) first.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
@@ -201,14 +208,20 @@ STEM = (320, 320, 64)
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "entry", "serving", "training",
           "timing", "breakdown")
-# Run only when asked for (``--phases parent``): the parent commit's B3 and
-# B6 sources, placed in PARENT_DIR, against this tree's on the card.
+# Run only when asked for (``--phases parent``): the parent commit's B1, B5
+# and B6 sources, placed in PARENT_DIR, against this tree's on the card.
 PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
 # B3's launches by group, first match wins (kernel names in the profile).
-B3_GROUPS = (("recompute", ("::conv_gemm<", "::gn_finalize(")),
+B3_GROUPS = (("recompute", ("::fwd_gemm<",)),
              ("dgrad", ("dgrad_gemm",)), ("wgrad", ("wgrad_gemm",)),
              ("slice sums", ("reduce_slices", "reduce_images")),
              ("output mask + GN", ("out_mask_bwd", "gn_bwd_", "relu_planes")))
+# B1's and B5's launches by group (``block_group``), and their kernels per
+# call: three GEMMs (B5's first is conv1 and the projection in one) whose
+# last CTA per image finalizes the GN, and the residual pass.
+B1_GROUPS = ("conv1 GEMM", "conv2 GEMM", "conv3 GEMM", "GN finalize",
+             "residual", "host copies")
+BLOCK_KERNELS = 4
 
 
 def log(phase: str, **fields) -> None:
@@ -264,14 +277,68 @@ def block_inputs(batch, h, w, c, f, gen, device):
     return x.to(device), [p.to(device) for p in params]
 
 
+def block_group(name: str, namespace: str) -> str:
+    """The ``B1_GROUPS`` group of a kernel launched by a B1 or B5 call
+    whose kernels live in ``namespace`` (this tree's or a parent's); the
+    others are the wrapper's host copies (weight layouts)."""
+    if namespace not in name:
+        return "host copies"
+    if "gemm<" in name:  # fwd_gemm<TAPS, PRO, BN> (a parent: conv_gemm)
+        args = [a.strip().split(")")[-1] for a in
+                name.split("gemm<", 1)[1].split(">", 1)[0].split(",")]
+        if args[0] == "9":
+            return "conv2 GEMM"
+        return "conv3 GEMM" if args[1] in ("true", "1") else "conv1 GEMM"
+    if "gn_finalize" in name:
+        return "GN finalize"
+    return "residual" if "residual" in name else "other"
+
+
+def block_split(call, namespace="b1_fused_bottleneck"):
+    """{group: [launches, device ms]} per call of a B1/B5 ``call``."""
+    split = {}
+    for name, (n, ms) in kernel_launches(call).items():
+        total = split.setdefault(block_group(name, namespace), [0.0, 0.0])
+        total[0] += n
+        total[1] += ms
+    return split
+
+
+def check_block_launches(label, split, namespace, **fields):
+    """A B1/B5 call with its weights laid out beforehand launches
+    BLOCK_KERNELS kernels of its own and nothing else (``split``:
+    ``block_split`` of the call)."""
+    own = sum(n for g, (n, _) in split.items() if g != "host copies")
+    copies = split.get("host copies", [0, 0])[0]
+    log(label, **fields, kernels=own, host_copies=copies,
+        launches_and_ms=split)
+    if own != BLOCK_KERNELS or copies:
+        raise AssertionError(f"{label} launched {own} kernels of "
+                             f"{namespace} and {copies} others per call, "
+                             f"expected {BLOCK_KERNELS} and 0")
+
+
+def forward_diff(a, b):
+    """Which parts of two ``Forward``s (y1, y2, y3, GN statistics) are
+    bitwise equal."""
+    stats = all(torch.equal(s, t) for pa, pb in zip(a[3], b[3])
+                for s, t in zip(pa, pb))
+    return [bool(torch.equal(s, t)) for s, t in zip(a[:3], b[:3])] + [stats]
+
+
 def check_b1(device) -> float:
     """B1 vs plain at every stage shape, at batch 2 and at the flagship
-    run's batch 8."""
+    run's batch 8; 4 kernels per call at res2, batch 8."""
     gen = torch.Generator().manual_seed(1)
     worst = 0.0
     for batch in (2, 8):
         for name, h, w, c, f, _ in STAGES:
             x, params = block_inputs(batch, h, w, c, f, gen, device)
+            if (name, batch) == ("res2", 8):
+                wts = b1.prepare_weights(*params[::3])
+                check_block_launches("b1-launches-per-call", block_split(
+                    lambda: b1.fused_bottleneck(x, *params, weights=wts)),
+                    "b1_fused_bottleneck")
             ref = b1.fused_bottleneck_plain(x, *params).float()
             out = b1.fused_bottleneck(x, *params)
             again = b1.fused_bottleneck(x, *params)
@@ -324,6 +391,7 @@ def check_b3(device) -> float:
                 torch.bfloat16).to(device)
             out, fwd = b3.fused_bottleneck_bwd(x, dout, *params,
                                                return_forward=True)
+            b1_fwd = b1.fused_bottleneck(x, *params, return_forward=True)[1]
             again = b3.fused_bottleneck_bwd(x, dout, *params)
             same = b3.fused_bottleneck_bwd_plain(x, dout, *params,
                                                  forward=fwd)
@@ -354,10 +422,15 @@ def check_b3(device) -> float:
                 stats["f64_err_plain"][key] = (
                     (r - t).abs().max() / scale).item()
             repeat = all(torch.equal(a, b) for a, b in zip(out, again))
+            as_b1 = forward_diff(fwd, b1_fwd)
             dx_err = (out[0].float() - same[0].float()).abs().max().item()
             log("b3-check", stage=name, shape=[batch, h, w, c], F=f,
                 dx_max_abs_err=dx_err, relu_flips=flips, **stats,
-                bitwise_repeat=repeat)
+                bitwise_repeat=repeat,
+                forward_bitwise_b1_y1_y2_y3_stats=as_b1)
+            if not all(as_b1):
+                raise AssertionError(f"B3's recomputed forward is not B1's "
+                                     f"at {name}, batch {batch}: {as_b1}")
             bad = [k for k in B3_OUTPUTS
                    if not (stats["max_rel"][k] <= B3_REL
                            and stats["corr"][k] >= B3_CORR
@@ -374,7 +447,8 @@ def check_b3(device) -> float:
                 raise AssertionError(f"B3 is not bitwise repeatable at "
                                      f"{name}, batch {batch}")
             worst = max(worst, dx_err)
-            del x, params, dout, fwd, own_fwd, same, ref, truth, out, again
+            del x, params, dout, fwd, b1_fwd, own_fwd, same, ref, truth, out
+            del again
     torch.cuda.empty_cache()
     return worst
 
@@ -447,11 +521,16 @@ def proj_inputs(batch, gen, device):
 
 def check_b5(device) -> float:
     """B5 vs its plain version at res2 b0, batch 2 and 8, to B1's bound;
-    bitwise repeatable."""
+    bitwise repeatable; 4 kernels per call at batch 8."""
     gen = torch.Generator().manual_seed(7)
     worst = 0.0
     for batch in (2, 8):
         x, params = proj_inputs(batch, gen, device)
+        if batch == 8:
+            wts = b1.prepare_proj_weights(*params[::3])
+            check_block_launches("b5-launches-per-call", block_split(
+                lambda: b1.fused_bottleneck_proj(x, *params, weights=wts),
+                "b5_fused_bottleneck_proj"), "b5_fused_bottleneck_proj")
         ref = b1.fused_bottleneck_proj_plain(x, *params).float()
         out = b1.fused_bottleneck_proj(x, *params)
         again = b1.fused_bottleneck_proj(x, *params)
@@ -562,6 +641,24 @@ def check_int8_serving(device):
                 "b5": b1.fused_bottleneck_proj.launches}
     for hook in hooks:
         hook.remove()
+    # s_w, as B6 read it, against the correctly rounded quotient (float64
+    # division of two fp32 values, rounded once to fp32), and how often
+    # PyTorch's division by the Python scalar 127.0 misses it.
+    channels = wrong = scalar_off = 0
+    with torch.no_grad():
+        for m in convs.values():
+            s_w = m._int8_weights(m.kernel).s_w
+            amax = torch.clamp(m.kernel.float().abs().amax(dim=(1, 2, 3)),
+                               min=1e-12)
+            exact = (amax.double() / 127.0).float()
+            channels += exact.numel()
+            wrong += int((s_w != exact).sum().item())
+            scalar_off += int((amax / 127.0 != exact).sum().item())
+    log("int8-weight-scales", convs=len(convs), channels=channels,
+        not_the_quotient=wrong, scalar_division_off=scalar_off)
+    if wrong:
+        raise AssertionError(f"{wrong} of {channels} weight scales are not "
+                             f"the correctly rounded quotient")
     backbone = sum(n.startswith("backbone_net.") for n in convs)
     log("int8-launches", **launches, quantized_convs=len(convs),
         backbone_convs=backbone, fpn_convs=len(convs) - backbone,
@@ -1081,19 +1178,36 @@ def b3_groups(call):
     return split, kernels
 
 
+def add_split(total, split, count):
+    """Adds ``count`` times a per-call {group: [launches, ms]} to
+    ``total``."""
+    for g, (n, ms) in split.items():
+        t = total.setdefault(g, [0.0, 0.0])
+        t[0] += count * n
+        t[1] += count * ms
+
+
 def time_kernels(device):
     """Each kernel vs its plain version at the slices' shapes (batch 8),
-    with its bound; B1 and B3 summed over the 12 identity blocks."""
+    with its bound; B1 and B3 summed over the 12 identity blocks.  B1 as
+    the serving path calls it, with its weight layouts made beforehand
+    (``kernel_ms``), and laying them out in the call
+    (``kernel_ms_layouts_in_call``, the scope of the parent's wrapper)."""
     gen = torch.Generator().manual_seed(4)
-    timing = {"b1": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0),
+    timing = {"b1": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0,
+                         ms_layouts_in_call=0.0),
               "b3": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_op=0.0)}
-    groups = {}
+    groups, b1_groups = {}, {}
     for name, h, w, c, f, count in STAGES:
         x, params = block_inputs(8, h, w, c, f, gen, device)
         dout = torch.randn(8, h, w, c, generator=gen).to(
             torch.bfloat16).to(device)
+        wts = b1.prepare_weights(*params[::3])
+        in_call = cuda_time_ms(lambda: b1.fused_bottleneck(x, *params), 10)
+        timing["b1"]["ms_layouts_in_call"] += count * in_call
         for key, passes, kernel, plain in (
-                ("b1", 1, lambda: b1.fused_bottleneck(x, *params),
+                ("b1", 1, lambda: b1.fused_bottleneck(x, *params,
+                                                      weights=wts),
                  lambda: b1.fused_bottleneck_plain(x, *params)),
                 ("b3", 3, lambda: b3.fused_bottleneck_bwd(x, dout, *params),
                  lambda: b3.fused_bottleneck_bwd_plain(x, dout, *params))):
@@ -1102,22 +1216,27 @@ def time_kernels(device):
             bound, by = block_bound(8, h, w, c, f, passes)
             log(f"{key}-time", stage=name, batch=8, kernel_ms=k_ms,
                 plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                blocks_per_step=count)
+                blocks_per_step=count,
+                **({"kernel_ms_layouts_in_call": in_call} if key == "b1"
+                   else {}))
             t = timing[key]
             t["ms"] += count * k_ms
             t["plain_ms"] += count * p_ms
             t["bound_ms"] += count * bound
             t["t_op"] += count * (bound if by == "operations" else 0.0)
+        split = block_split(lambda: b1.fused_bottleneck(x, *params,
+                                                        weights=wts))
+        check_block_launches("b1-split", split, "b1_fused_bottleneck",
+                             stage=name, batch=8)
+        add_split(b1_groups, split, count)
         split, kernels = b3_groups(lambda: b3.fused_bottleneck_bwd(
             x, dout, *params))
         log("b3-split", stage=name, batch=8, launches_and_ms=split,
             by_kernel=kernels)
-        for g, (n, ms) in split.items():
-            total = groups.get(g, (0.0, 0.0))
-            groups[g] = (total[0] + count * n, total[1] + count * ms)
-        del x, params, dout
-    log("b3-split-total", batch=8, blocks=12,
-        launches_and_ms={g: list(v) for g, v in groups.items()})
+        add_split(groups, split, count)
+        del x, params, dout, wts
+    log("b1-split-total", batch=8, blocks=12, launches_and_ms=b1_groups)
+    log("b3-split-total", batch=8, blocks=12, launches_and_ms=groups)
     for t in timing.values():
         t["bound_by"] = ("operations" if t.pop("t_op") >= t["bound_ms"] / 2
                          else "bytes")
@@ -1269,17 +1388,24 @@ def time_new_kernels(device, int8_shapes):
 
     x, params = proj_inputs(8, gen, device)
     h, w, cin, c, f = RES2_B0
-    k_ms = cuda_time_ms(lambda: b1.fused_bottleneck_proj(x, *params), 10)
+    wts = b1.prepare_proj_weights(*params[::3])
+    k_ms = cuda_time_ms(lambda: b1.fused_bottleneck_proj(x, *params,
+                                                         weights=wts), 10)
+    in_call = cuda_time_ms(lambda: b1.fused_bottleneck_proj(x, *params), 10)
     p_ms = cuda_time_ms(lambda: b1.fused_bottleneck_proj_plain(x, *params), 5)
     weights = cin * f + 9 * f * f + f * c + cin * c
     ms, by = bound(2 * 8 * h * w * weights,
                    8 * h * w * (cin + c) * 2 + (weights + 4 * f + 4 * c) * 4,
                    PEAK_BF16)
     log("b5-time", shape=[8, h, w, cin], C=c, F=f, kernel_ms=k_ms,
-        plain_ms=p_ms, bound_ms=ms, bound_by=by)
+        kernel_ms_layouts_in_call=in_call, plain_ms=p_ms, bound_ms=ms,
+        bound_by=by,
+        launches_and_ms=block_split(
+            lambda: b1.fused_bottleneck_proj(x, *params, weights=wts),
+            "b5_fused_bottleneck_proj"))
     timing["b5"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by,
-                        library_ms=None)
-    del x, params
+                        library_ms=None, ms_layouts_in_call=in_call)
+    del x, params, wts
 
     timing["b6"] = time_b6(device, int8_shapes, gen)
 
@@ -1390,43 +1516,83 @@ def breakdown(device):
 
 def parent_module(name: str):
     """The parent commit's ``ops/<name>.py`` from PARENT_DIR, its kernel
-    library pointed at the parent's ``<name>.cu`` there (which includes
-    the parent's headers beside it)."""
+    libraries pointed at the parent's sources there (which include the
+    parent's headers beside them)."""
     spec = importlib.util.spec_from_file_location(f"parent_{name}",
                                                   PARENT_DIR / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    module.LIB.source = PARENT_DIR / f"{name}.cu"
+    for lib in (getattr(module, k) for k in ("LIB", "PROJ_LIB")
+                if hasattr(module, k)):
+        lib.source = PARENT_DIR / lib.source.name
     return module
 
 
+def within_b1_bound(label, out, ref, **fields) -> None:
+    """Logs how far ``out`` is from ``ref`` and raises unless it is
+    within B1's bound."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    over = int((err > B1_REL * ref.abs().clamp(min=1.0)).sum().item())
+    log(label, **fields, max_abs_err=err.max().item(),
+        mean_abs_err=err.mean().item(),
+        bitwise_equal_share=(err == 0).float().mean().item(),
+        over_bound=over)
+    if over or err.mean().item() > B1_MEAN:
+        raise AssertionError(f"{label}: outside B1's bound at {fields}")
+
+
 def check_parent(device, int8_shapes):
-    """This tree's B3 and B6 against the parent commit's, built from
-    PARENT_DIR: B3's recomputed forward (y1..y3 and the GN statistics,
-    ``return_forward=True``) at the four stage shapes, batch 8, bitwise;
-    B6 at every int8 conv shape bitwise, once end to end (each with its own
-    wrapper) and once with the parent's kernels given this tree's s_x.
-    Also logs whether PyTorch's CUDA division by a Python scalar equals
-    the true quotient (the parent's s_x divided so)."""
-    old3, old6 = parent_module("bottleneck_bwd"), parent_module("int8_conv")
+    """This tree's B1, B5 and B6 against the parent commit's, built from
+    PARENT_DIR.  B1 at the four stage shapes and B5 at res2 b0, batch 8:
+    within B1's bound of the parent's output (the redesigned GEMMs sum in
+    another order), timed in turns (parent, this tree, this tree, parent;
+    each wrapper as serving calls it), B1 by launch group.  B6 at every
+    int8 conv shape: end to end, and bitwise with the parent's kernels
+    given this tree's s_x and prepared weights (s_w, whose division this
+    tree repaired).  Also logs whether PyTorch's CUDA division by a Python
+    scalar equals the true quotient (the parent's s_x and s_w divided
+    so)."""
+    old1, old6 = parent_module("bottleneck"), parent_module("int8_conv")
     gen = torch.Generator().manual_seed(12)
-    for name, h, w, c, f, _ in STAGES:
+    turns = {"parent": 0.0, "this": 0.0}
+    for name, h, w, c, f, count in STAGES:
         x, params = block_inputs(8, h, w, c, f, gen, device)
-        dout = torch.randn(8, h, w, c, generator=gen).to(
-            torch.bfloat16).to(device)
-        new = b3.fused_bottleneck_bwd(x, dout, *params, return_forward=True)
-        old = old3.fused_bottleneck_bwd(x, dout, *params,
-                                        return_forward=True)
+        wts = b1.prepare_weights(*params[::3])
+        new = b1.fused_bottleneck(x, *params, weights=wts)
+        old = old1.fused_bottleneck(x, *params)
         torch.cuda.synchronize()
-        ys = [bool(torch.equal(a, b)) for a, b in zip(new[1][:3], old[1][:3])]
-        stats = all(torch.equal(a, b) for pa, pb in zip(new[1][3], old[1][3])
-                    for a, b in zip(pa, pb))
-        log("parent-b3", stage=name, batch=8, y1_y2_y3_bitwise=ys,
-            gn_stats_bitwise=stats)
-        if not all(ys) or not stats:
-            raise AssertionError(f"B3's recompute differs from the parent's "
-                                 f"at {name}")
-        del x, params, dout, new, old
+        within_b1_bound("parent-b1", new, old, stage=name, batch=8)
+        calls = {"parent": lambda: old1.fused_bottleneck(x, *params),
+                 "this": lambda: b1.fused_bottleneck(x, *params,
+                                                     weights=wts)}
+        ms = {}
+        for who in ("parent", "this", "this", "parent"):
+            ms.setdefault(who, []).append(cuda_time_ms(calls[who], 10))
+        for who, v in ms.items():
+            turns[who] += count * sum(v) / len(v)
+        log("parent-b1-time", stage=name, batch=8, blocks=count,
+            ms_in_turns=ms)
+        log("parent-b1-split", stage=name, batch=8,
+            launches_and_ms=block_split(calls["parent"]))
+        del x, params, wts, new, old
+    log("parent-b1-time-total", batch=8, blocks=12, parent_ms=turns["parent"],
+        this_ms=turns["this"])
+    x, params = proj_inputs(8, gen, device)
+    wts = b1.prepare_proj_weights(*params[::3])
+    calls = {"parent": lambda: old1.fused_bottleneck_proj(x, *params),
+             "this": lambda: b1.fused_bottleneck_proj(x, *params,
+                                                      weights=wts)}
+    new, old = calls["this"](), calls["parent"]()
+    torch.cuda.synchronize()
+    within_b1_bound("parent-b5", new, old, shape=list(x.shape))
+    ms = {}
+    for who in ("parent", "this", "this", "parent"):
+        ms.setdefault(who, []).append(cuda_time_ms(calls[who], 10))
+    log("parent-b5-time", batch=8, ms_in_turns=ms,
+        parent_split=block_split(calls["parent"],
+                                 "b5_fused_bottleneck_proj"))
+    del x, params, wts, new, old
     t = torch.rand(1 << 20, generator=gen).to(device) * 100
     log("parent-scalar-division",
         differs_share=(t / 127.0 != t / torch.full_like(t, 127.0))
@@ -1435,14 +1601,15 @@ def check_parent(device, int8_shapes):
     for key in sorted(int8_shapes):
         x, kernel = int8_case(key, gen, device)
         s = key[-1]
-        new = b6.int8_conv(x, kernel, s)
+        wts = b6.prepare_weights(kernel)
+        new = b6.int8_conv(x, kernel, s, weights=wts)
         old = old6.int8_conv(x, kernel, s)
         s_new = b6.quantize_activations(x)
         s_old = old6.quantize_activations(x)
         real = old6.quantize_activations
         old6.quantize_activations = lambda _: s_new
         try:
-            same_sx = old6.int8_conv(x, kernel, s)
+            same_inputs = old6.int8_conv(x, kernel, s, weights=wts)
         finally:
             old6.quantize_activations = real
         torch.cuda.synchronize()
@@ -1451,11 +1618,14 @@ def check_parent(device, int8_shapes):
         log("parent-b6", shape=list(key[:4]), F=key[4], k=key[5], stride=s,
             bitwise_end_to_end=end,
             s_x_equal=bool(torch.equal(s_new, s_old)),
-            bitwise_given_s_x=bool(torch.equal(new, same_sx)))
-        if not torch.equal(new, same_sx):
+            s_w_equal=bool(torch.equal(wts.s_w,
+                                       old6.quantize_weights(kernel)[1])),
+            bitwise_given_s_x_and_weights=bool(torch.equal(new,
+                                                           same_inputs)))
+        if not torch.equal(new, same_inputs):
             raise AssertionError(f"B6 differs from the parent's kernels at "
                                  f"{key}")
-        del x, kernel, new, old, same_sx
+        del x, kernel, wts, new, old, same_inputs
     log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends)
 
 
@@ -1473,7 +1643,7 @@ def build_kernels():
     for lib, sec in zip(libs, seconds):
         lines = [ln.strip() for ln in lib.ptxas_log.splitlines()
                  if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
+                 or "Compiling entry" in ln or "arning" in ln]
         log("build", source=lib.source.name, seconds=sec, ptxas=lines)
 
 

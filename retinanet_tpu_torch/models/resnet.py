@@ -11,7 +11,10 @@ backward B3 (``ops/bottleneck_bwd.py``) when training.  The JAX package
 keeps res5 (width 20 at 640 px) on autodiff because of a Mosaic tiling
 limit (``w % 8``); the CUDA kernel has none, so all 12 identity blocks take
 B3.  With ``fused_proj`` the stride-1 projection block (res2 b0) serves
-through kernel B5.  ``quantize`` runs every block conv through the int8
+through kernel B5.  A fused block keeps its kernels' bf16 layouts per
+parameter version (``ops/cuda.py:ParameterCache`` of
+``ops/bottleneck.py:prepare_weights`` or ``prepare_proj_weights``): built
+once for serving, and again after every optimizer step in training.  ``quantize`` runs every block conv through the int8
 convolution (kernel B6) and keeps every block off B1, B3 and B5; the stem
 stays float.  Everything else runs the plain layers.
 """
@@ -19,7 +22,7 @@ stays float.  Everything else runs the plain layers.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +30,11 @@ from torch import Tensor, nn
 
 from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
 from retinanet_tpu_torch.ops.bottleneck import (fused_bottleneck,
-                                                fused_bottleneck_proj)
+                                                fused_bottleneck_proj,
+                                                prepare_proj_weights,
+                                                prepare_weights)
 from retinanet_tpu_torch.ops.bottleneck_bwd import fused_bottleneck_train
+from retinanet_tpu_torch.ops.cuda import ParameterCache
 
 logger = logging.getLogger(__name__)
 
@@ -60,6 +66,7 @@ class ResNetBottleneck(nn.Module):
                          quantize=quantize)]
         for i, conv in enumerate(convs):
             self.add_module(f"ConvGN_{i}", conv)
+        self._fused_weights: Optional[ParameterCache] = None
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:
         convs = list(self.children())
@@ -80,7 +87,11 @@ class ResNetBottleneck(nn.Module):
             for conv in order:
                 params += [conv.Conv_0.kernel, conv.GroupNorm_0.gamma,
                            conv.GroupNorm_0.beta]
-            out = block(x.permute(0, 2, 3, 1), *params)
+            if self._fused_weights is None:
+                self._fused_weights = ParameterCache(
+                    prepare_proj_weights if self.project else prepare_weights)
+            weights = self._fused_weights(*params[::3])
+            out = block(x.permute(0, 2, 3, 1), *params, weights=weights)
             return out.permute(0, 3, 1, 2)
         identity = convs[0](x) if self.project else x
         return F.relu(conv3(conv2(conv1(x))) + identity)

@@ -14,15 +14,16 @@ The kernel reads six bf16 layouts of the three conv kernels (``w1``,
 ``w1t``, ``w2``, ``w2r``, ``w3``, ``w3t``), which ``prepare_weights``
 builds on every call: the optimizer updates the kernels in place after
 every step, so a copy kept between calls would be rebuilt each time.  The
-CUDA kernel recomputes y1..y3 with B1's own GEMM (bitwise B1's forward),
-writes the relu(GN affine) planes a1, a2 once, and runs its dgrad and
-weight-gradient GEMMs on wgmma from a ring of asynchronous copies (the
-source note of ``csrc/bottleneck_bwd.cu``).
+CUDA kernel recomputes y1..y3 with B1's own GEMM kernels, launched as B1
+launches them (bitwise B1's forward), writes the relu(GN affine) planes
+a1, a2 once, and runs its dgrad and weight-gradient GEMMs on wgmma from a
+ring of asynchronous copies (the source note of ``csrc/bottleneck_bwd.cu``).
 
 ``FusedBottleneckTrain`` (``fused_bottleneck_train``) is the autograd
-Function of the training path: its forward is B1 (``ops/bottleneck.py``)
-and it saves only the primals, x and the nine parameters; its backward is
-``fused_bottleneck_bwd``.  Gradients come back in the port's shapes: OIHW
+Function of the training path: its forward is B1 (``ops/bottleneck.py``,
+with the layouts ``ResNetBottleneck`` keeps, which every optimizer step
+renews) and it saves only the primals, x and the nine parameters; its
+backward is ``fused_bottleneck_bwd``.  Gradients come back in the port's shapes: OIHW
 kernels and GN vectors in fp32, ``dx`` bf16 NHWC.
 """
 
@@ -36,12 +37,14 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from retinanet_tpu_torch.models.layers import resolve_groups
-from retinanet_tpu_torch.ops.bottleneck import fused_bottleneck
+from retinanet_tpu_torch.ops.bottleneck import (MAX_F, BlockWeights,
+                                                Forward, forward_of,
+                                                fused_bottleneck, tickets)
 from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("bottleneck_bwd.cu", {
-    "fused_bottleneck_bwd": [_P] * 37 + [_I] * 10 + [ctypes.c_float, _P],
+    "fused_bottleneck_bwd": [_P] * 38 + [_I] * 10 + [ctypes.c_float, _P],
 })
 
 # Upper bound on the K-slices of a weight-gradient GEMM, the number of CTAs
@@ -53,9 +56,6 @@ _WGRAD_BK = 64
 
 Grads = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
               Tensor, Tensor]
-# (y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3))): the block's
-# conv outputs [B, HW, ·] and each GN's statistics [B, ·].
-Forward = Tuple[Tensor, Tensor, Tensor, Tuple[Tuple[Tensor, Tensor], ...]]
 
 
 def _moments(y: Tensor, groups: int, eps: float,
@@ -282,11 +282,11 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
         raise ValueError(f"kernel shapes {tuple(k1.shape)}, "
                          f"{tuple(k2.shape)}, {tuple(k3.shape)} do not fit "
                          f"x {tuple(x.shape)}")
-    if c % 64 or f % 64 or 64 % (c // resolve_groups(c)) or 64 % (
-            f // resolve_groups(f)):
+    if (c % 64 or f % 64 or f > MAX_F or 64 % (c // resolve_groups(c))
+            or 64 % (f // resolve_groups(f))):
         raise ValueError(f"the CUDA bottleneck backward needs C and F "
-                         f"divisible by 64 and GN groups whose width "
-                         f"divides 64, got C={c}, F={f}")
+                         f"divisible by 64, F <= {MAX_F} and GN groups whose "
+                         f"width divides 64, got C={c}, F={f}")
     if dout.shape != x.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match x "
                          f"{tuple(x.shape)}")
@@ -337,8 +337,8 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
              gb[5].data_ptr(), y1.data_ptr(), y2.data_ptr(), y3.data_ptr(),
              planes.data_ptr(), part.data_ptr(), ss.data_ptr(),
              mv.data_ptr(), dn3.data_ptr(), dn21.data_ptr(), dyb.data_ptr(),
-             tt.data_ptr(), gimg.data_ptr(),
-             wpart.data_ptr(), dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(),
+             tt.data_ptr(), gimg.data_ptr(), wpart.data_ptr(),
+             tickets(dev, bsz).data_ptr(), dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(),
              dk3.data_ptr(), *(t.data_ptr() for t in dgb),
              bsz, h, w, c, f, resolve_groups(f), resolve_groups(c),
              s1, s2, s3, float(eps), stream_ptr(dev))
@@ -348,12 +348,7 @@ def fused_bottleneck_bwd(x: Tensor, dout: Tensor, k1: Tensor, g1: Tensor,
     grads = dx, dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3
     if not return_forward:
         return grads
-    # mv holds mean1, inv1, mean2, inv2, mean3, inv3, each [B, F or C]
-    # packed at the start of its [B*C] row.
-    rows = mv.view(6, bsz * c)
-    stats = tuple(tuple(rows[2 * i + j, :bsz * n].view(bsz, n)
-                        for j in (0, 1)) for i, n in enumerate((f, f, c)))
-    return grads, (y1, y2, y3, stats)
+    return grads, forward_of(y1, y2, y3, mv)
 
 
 fused_bottleneck_bwd.launches = 0
@@ -366,10 +361,12 @@ class FusedBottleneckTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                 k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor, g3: Tensor,
-                b3: Tensor, eps: float = 1e-5) -> Tensor:
+                b3: Tensor, eps: float = 1e-5,
+                weights: Optional[BlockWeights] = None) -> Tensor:
         ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, k3, g3, b3)
         ctx.eps = eps
-        return fused_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, eps)
+        return fused_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, eps,
+                                weights)
 
     @staticmethod
     def backward(ctx, dout: Tensor):
@@ -378,14 +375,16 @@ class FusedBottleneckTrain(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         dx, *dparams = fused_bottleneck_bwd(x, dout.contiguous(), *params,
                                             eps=ctx.eps)
-        return (dx, *dparams, None)
+        return (dx, *dparams, None, None)
 
 
 def fused_bottleneck_train(x: Tensor, k1: Tensor, g1: Tensor, b1: Tensor,
                            k2: Tensor, g2: Tensor, b2: Tensor, k3: Tensor,
-                           g3: Tensor, b3: Tensor, eps: float = 1e-5
+                           g3: Tensor, b3: Tensor, eps: float = 1e-5,
+                           weights: Optional[BlockWeights] = None
                            ) -> Tensor:
     """``fused_bottleneck`` with the hand-written backward as its
-    gradient (the JAX package's custom VJP)."""
+    gradient (the JAX package's custom VJP); ``weights`` as for
+    ``fused_bottleneck``."""
     return FusedBottleneckTrain.apply(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
-                                      eps)
+                                      eps, weights)

@@ -24,11 +24,12 @@
 // in no order.  So the backward is cut at every reduction into launches
 // that stream their operands (bf16 planes y1..y3, a1, a2, dn3, dn2/1 and dy
 // stay in device memory for one block's backward):
-//   P1-P3  B1's conv GEMMs (bottleneck_common.cuh's mma.sync conv_gemm, the
-//          same K order and k16 steps as B1, so y1..y3 and the relu masks
-//          are B1's bit for bit); the finalize also writes fp32 mean and
-//          inv-std.  relu_planes then writes a1 = bf16(relu(GN1 affine(y1)))
-//          and a2 = bf16(relu(GN2 affine(y2))) once, for the weight
+//   P1-P3  B1's forward GEMMs (bottleneck_common.cuh's fwd_gemm on the
+//          wgmma mainloop, launched as B1 launches them: the same tiles and
+//          K order, so y1..y3, the GN statistics and the relu masks are
+//          B1's bit for bit); their in-GEMM finalize also writes fp32 mean
+//          and inv-std.  relu_planes then writes a1 = bf16(relu(GN1
+//          affine(y1))) and a2 = bf16(relu(GN2 affine(y2))) once, for the weight
 //          gradients' nine taps and one to read.
 //   P4     elementwise output mask -> dn3, per-CTA (sum d, sum d*yhat)
 //   GN3    fixed-order finalize (one CTA per image and 64 channels) -> t1,
@@ -41,7 +42,7 @@
 //   GN1    finalize; dy1
 //   P7     dgrad_gemm dy1.k1^T with a residual epilogue (+ dn3) -> dx;
 //          wgrad dk1 = dy1^T . x
-// 24 launches per block.
+// 21 launches per block.
 //
 // The GEMMs.  dgrad_gemm runs hopper_gemm.cuh's implicit-GEMM mainloop: 128
 // x BN tiles of one image (BN = 128, or 64 for the 64-wide res2), a ring
@@ -68,15 +69,17 @@
 //
 // What bounds it: three recomputed, three dgrad and three wgrad GEMMs
 // (about 3x B1's FLOP) at the bf16 tensor-core peak, plus the bf16 planes
-// each pass streams.  The recompute stays on B1's mma.sync tiles until B1
-// moves to wgmma, so that the masks stay B1's.
+// each pass streams.
 
 #define BOTTLENECK_NS b3_fused_bottleneck_bwd
 #include "bottleneck_common.cuh"
-#include "hopper_gemm.cuh"
 
 namespace {
 namespace BOTTLENECK_NS {
+
+// Rows and channels of an out_mask_bwd tile.
+constexpr int BM = 64;
+constexpr int BN = 64;
 
 // P4: dn3 = (bf16(GN3 affine of y3) + x > 0) ? dout : 0, with per-CTA
 // partials (sum dn3, sum dn3*yhat3) of 64 rows x 64 channels.  A thread
@@ -263,7 +266,7 @@ __global__ void relu_planes(const bf16* __restrict__ y1,
 // dgrad: Y[b, p, n] = epi(sum_k A'[b, p, k] * Wt[n, k]) for the 128 rows p
 // of tile blockIdx.y of image b, k over TAPS taps x K0 channels (tap-major),
 // A' the cotangent at the tap's neighbour pixel (0 outside the image), with
-// conv_gemm's EPI_MASK or EPI_RESID epilogue; EPI_MASK writes per-CTA
+// the EPI_MASK or EPI_RESID epilogue; EPI_MASK writes per-CTA
 // per-channel partials to part[b, mt, 2, N] (MT = ceil(HW / 128)).
 template <int TAPS, int EPI, int BN>
 __global__ void __launch_bounds__(hopper::CONV_THREADS) dgrad_gemm(
@@ -619,11 +622,11 @@ cudaError_t wgrad(const bf16* P, const bf16* Q, float* part, int B, int H,
 // bf16 (a1, a2); part [B, ceil(HW/64), 2, C] fp32; ss [6,B,C] bf16
 // scale/shift; mv [6,B,C] fp32 mean/inv; dn3 [B,HW,C], dn21 [B,HW,F], dyb
 // [B,HW,C] bf16; tt [2,B,C] fp32; gimg [6,B,C] fp32; wpart fp32 of
-// max(S1*F*C, S2*9*F*F, S3*C*F).  Outputs (fp32): dk1 [F,C], dk2 [F,F,3,3],
+// max(S1*F*C, S2*9*F*F, S3*C*F); tickets [B] words, 0 on entry (left 0).  Outputs (fp32): dk1 [F,C], dk2 [F,F,3,3],
 // dk3 [C,F], dg*/db* [F] or [C].  S1..S3: K-slices of the dk1, dk2, dk3
-// wgrads.  Requires C % 64 == 0 and F % 64 == 0, GN groups of C/G3 and F/G1
-// channels that divide 64, and 1 <= S <= ceil(B*H*W/64) (checked by the
-// Python wrapper).  Returns the first launch error (0 =
+// wgrads.  Requires C % 64 == 0, F % 64 == 0, F <= 512, GN groups of C/G3
+// and F/G1 channels that divide 64, and 1 <= S <= ceil(B*H*W/64) (checked
+// by the Python wrapper).  Returns the first launch error (0 =
 // cudaSuccess).
 extern "C" int fused_bottleneck_bwd(
     const void* x, const void* dout, const void* w1, const void* w1t,
@@ -631,13 +634,13 @@ extern "C" int fused_bottleneck_bwd(
     const void* g2, const void* b2, const void* w3, const void* w3t,
     const void* g3, const void* b3, void* y1, void* y2, void* y3,
     void* planes, void* part, void* ss, void* mv, void* dn3, void* dn21,
-    void* dyb, void* tt, void* gimg, void* wpart, void* dx, void* dk1,
-    void* dk2, void* dk3, void* dg1, void* db1, void* dg2, void* db2,
+    void* dyb, void* tt, void* gimg, void* wpart, void* tickets, void* dx,
+    void* dk1, void* dk2, void* dk3, void* dg1, void* db1, void* dg2, void* db2,
     void* dg3, void* db3, int B, int H, int W, int C, int F, int G1, int G3,
     int S1, int S2, int S3, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  const int MT = (HW + BM - 1) / BM;  // B1's 64-row tiles (P1-P4)
+  const int MT = (HW + BM - 1) / BM;  // out_mask_bwd's 64-row tiles (P4)
   const int MT2 = (HW + hopper::CONV_BM - 1) / hopper::CONV_BM;  // dgrad's
   const size_t bc = (size_t)B * C;
   bf16* s = static_cast<bf16*>(ss);
@@ -660,9 +663,7 @@ extern "C" int fused_bottleneck_bwd(
   const float *G1p = static_cast<const float*>(g1),
               *G2p = static_cast<const float*>(g2),
               *G3p = static_cast<const float*>(g3);
-  const EpiArgs none = {};
-  const size_t smF = (2 * F + 2 * G1) * sizeof(float);
-  const size_t smC = (2 * C + 2 * G3) * sizeof(float);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   const size_t nF = (size_t)B * HW * F / 8;
   cudaError_t e;
 #define CHECK()                                         \
@@ -672,28 +673,24 @@ extern "C" int fused_bottleneck_bwd(
 
   // P1-P3: the forward, as B1 computes it, keeping fp32 mean/inv; then the
   // wgrads' relu(GN affine) planes a1, a2.
-  conv_gemm<1, false, EPI_STATS><<<dim3(F / BN, MT, B), NT, 0, st>>>(
-      X, static_cast<const bf16*>(w1), nullptr, nullptr, Y1, pt, H, W, C, F,
-      none);
-  CHECK();
-  gn_finalize<<<B, 256, smF, st>>>(pt, MT, F, G1, HW, G1p,
-                                   static_cast<const float*>(b1), eps, sc1,
-                                   sh1, mean1, inv1);
-  CHECK();
-  conv_gemm<9, true, EPI_STATS><<<dim3(F / BN, MT, B), NT, 0, st>>>(
-      Y1, static_cast<const bf16*>(w2), sc1, sh1, Y2, pt, H, W, F, F, none);
-  CHECK();
-  gn_finalize<<<B, 256, smF, st>>>(pt, MT, F, G1, HW, G2p,
-                                   static_cast<const float*>(b2), eps, sc2,
-                                   sh2, mean2, inv2);
-  CHECK();
-  conv_gemm<1, true, EPI_STATS><<<dim3(C / BN, MT, B), NT, 0, st>>>(
-      Y2, static_cast<const bf16*>(w3), sc2, sh2, Y3, pt, H, W, F, C, none);
-  CHECK();
-  gn_finalize<<<B, 256, smC, st>>>(pt, MT, C, G3, HW, G3p,
-                                   static_cast<const float*>(b3), eps, sc3,
-                                   sh3, mean3, inv3);
-  CHECK();
+  CALL((fwd_conv<1, false>(
+      fwd_args(X, static_cast<const bf16*>(w1), nullptr, nullptr, Y1, pt, tk,
+               H, W, C, F, eps,
+               {0, F, G1, G1p, static_cast<const float*>(b1), sc1, sh1, mean1,
+                inv1}),
+      B, st)));
+  CALL((fwd_conv<9, true>(
+      fwd_args(Y1, static_cast<const bf16*>(w2), sc1, sh1, Y2, pt, tk, H, W,
+               F, F, eps,
+               {0, F, G1, G2p, static_cast<const float*>(b2), sc2, sh2, mean2,
+                inv2}),
+      B, st)));
+  CALL((fwd_conv<1, true>(
+      fwd_args(Y2, static_cast<const bf16*>(w3), sc2, sh2, Y3, pt, tk, H, W,
+               F, C, eps,
+               {0, C, G3, G3p, static_cast<const float*>(b3), sc3, sh3, mean3,
+                inv3}),
+      B, st)));
   relu_planes<<<grid1d(nF, 256), 256, 0, st>>>(Y1, Y2, sc1, sh1, sc2, sh2,
                                               A1, A2, HW, F, nF);
   CHECK();

@@ -1,10 +1,10 @@
-// Hopper GEMM building blocks of kernels B3 (bottleneck_bwd.cu) and B6
-// (int8_conv.cu): 16-byte cp.async copies into a ring of shared-memory
-// stages (zero-filled where the source is outside the image), 128-byte
-// swizzled tiles that wgmma reads through shared-memory descriptors, and the
-// implicit-GEMM convolution mainloop that B6's GEMM and B3's dgrad GEMMs
-// share.  B1 and B5 do not include it:
-// they keep bottleneck_common.cuh's conv_gemm.
+// Hopper GEMM building blocks of kernels B1 and B5 (bottleneck.cu,
+// bottleneck_proj.cu, through bottleneck_common.cuh), B3
+// (bottleneck_bwd.cu) and B6 (int8_conv.cu): 16-byte cp.async copies into a
+// ring of shared-memory stages (zero-filled where the source is outside the
+// image), 128-byte swizzled tiles that wgmma reads through shared-memory
+// descriptors, and the implicit-GEMM convolution mainloop that B1's, B5's
+// and B3's bf16 convolutions and B6's int8 GEMM share.
 //
 // The convolution mainloop computes a 128 x BN tile of
 //     acc[p, n] += sum_k A[p, k] * Wt[n, k]
@@ -16,7 +16,9 @@
 // are K-major, which int8 wgmma requires.  K advances 32 bytes per wgmma
 // (k32 s8 or k16 bf16).  C*sizeof(element) % 64 == 0 keeps every 64-byte
 // half row inside one tap; a K that is not a multiple of 128 bytes ends in a
-// zero-filled half stage, which adds nothing.
+// zero-filled half stage, which adds nothing.  Once a stage has landed, the
+// A producer's landed() hook may rewrite the bytes each thread copied
+// itself before wgmma reads them (B1's and B5's GN-affine+relu prologue).
 
 #pragma once
 
@@ -366,22 +368,37 @@ struct CopyA {
   ConvRow row;
   int H, W, cb, kb;
 
-  __device__ __forceinline__ void operator()(uint32_t sa, int k0,
-                                             int tid) const {
-    const int r = tid >> 1, h = tid & 1;
-    const int k = k0 + h * 64;
+  // Whether this thread's 64 bytes of stage k0 lie in the image (else they
+  // are zero-filled), with their source and their byte offset c0 within
+  // the source pixel.
+  __device__ __forceinline__ bool source(int k0, int tid, const char** src,
+                                         int* c0) const {
+    const int k = k0 + (tid & 1) * 64;
     const int tap = k / cb;
-    const int c0 = k - tap * cb;
+    *c0 = k - tap * cb;
     const int iy = row.iy0 + tap / KS, ix = row.ix0 + tap % KS;
     const bool ok =
         row.valid && k < kb && iy >= 0 && iy < H && ix >= 0 && ix < W;
-    const char* src =
-        ok ? row.img + ((size_t)iy * W + ix) * cb + c0 : row.img;
+    *src = ok ? row.img + ((size_t)iy * W + ix) * cb + *c0 : row.img;
+    return ok;
+  }
+
+  __device__ __forceinline__ void operator()(uint32_t sa, int k0,
+                                             int tid) const {
+    const int r = tid >> 1, h = tid & 1;
+    const char* src;
+    int c0;
+    const bool ok = source(k0, tid, &src, &c0);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       cp_async16(sa + sw128(r, h * 4 + j), src + (ok ? j * 16 : 0),
                  ok ? 16 : 0);
   }
+
+  // Called once stage k0 (at sa) has landed for this thread, before the
+  // CTA's barrier and wgmma: a producer that transforms its own copies in
+  // place does so here.  A plain copy leaves them.
+  __device__ __forceinline__ void landed(uint32_t, int, int) const {}
 };
 
 // Bytes [k0, k0 + 128) of the BN rows of Wt (kb bytes each): 32 bytes per
@@ -401,12 +418,13 @@ __device__ __forceinline__ void conv_load_b(uint32_t sb, const char* wt,
   }
 }
 
-// acc = A . Wt^T over K = kb bytes for this CTA's 128 rows (pa) and the
-// BN rows of wt (Wt + n0 * kb bytes).  Ends with every copy landed and a
-// barrier, so the caller may reuse smem.
-template <int BN, int KS, typename Acc>
+// acc = A . Wt^T over K = kb bytes for this CTA's 128 rows (pa, a CopyA
+// or a producer with the same interface) and the BN rows of wt (Wt + n0 *
+// kb bytes).  Ends with every copy landed and a barrier, so the caller may
+// reuse smem.
+template <int BN, typename Copy, typename Acc>
 __device__ __forceinline__ void conv_mainloop(Acc (&acc)[BN / 2], char* smem,
-                                              const CopyA<KS>& pa,
+                                              const Copy& pa,
                                               const char* wt, int kb) {
   constexpr int SB = conv_stage_bytes<BN>();
   const int tid = threadIdx.x;
@@ -425,10 +443,16 @@ __device__ __forceinline__ void conv_mainloop(Acc (&acc)[BN / 2], char* smem,
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    // Stage kt has landed for every thread, and every warpgroup has
-    // finished reading stage kt - 1, whose slot the next stage refills.
+    // Stage kt has landed for this thread, and the producer's hook runs on
+    // it while this warpgroup's wgmma of stage kt - 1 (another slot) may
+    // still run.  Then that wgmma is waited for, and the barrier tells every
+    // thread that stage kt has landed everywhere and that stage kt - 1's
+    // slot, which the next stage refills, is read.
     cp_async_wait<CONV_STAGES - 2>();
+    pa.landed(base + (kt % CONV_STAGES) * SB, kt * CONV_BK, tid);
     fence_proxy_async();
+    wgmma_wait<0>();
+    fence_operands(acc);
     __syncthreads();
     const int nxt = kt + CONV_STAGES - 1;
     const uint32_t sn = base + (nxt % CONV_STAGES) * SB;
@@ -445,9 +469,9 @@ __device__ __forceinline__ void conv_mainloop(Acc (&acc)[BN / 2], char* smem,
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) wgmma(acc, da + 2 * ks, db + 2 * ks);
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc);
   }
+  wgmma_wait<0>();
+  fence_operands(acc);
   cp_async_wait<0>();
   __syncthreads();
 }

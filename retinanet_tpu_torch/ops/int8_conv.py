@@ -79,9 +79,11 @@ def quantize_activations(x: Tensor) -> Tensor:
 
 def quantize_weights(kernel: Tensor) -> Tuple[Tensor, Tensor]:
     """(w_q int8 OIHW, s_w fp32 [O]) of an fp32 OIHW kernel, one scale per
-    output channel (amax over I, H, W)."""
+    output channel (amax over I, H, W).  The divisor is a tensor, as in
+    ``quantize_activations``: s_w is the correctly rounded quotient."""
     k = kernel.float()
-    s_w = torch.clamp(k.abs().amax(dim=(1, 2, 3)), min=1e-12) / 127.0
+    amax = torch.clamp(k.abs().amax(dim=(1, 2, 3)), min=1e-12)
+    s_w = amax / torch.full_like(amax, 127.0)
     w_q = torch.clamp(torch.round(k / s_w[:, None, None, None]), -127, 127)
     return w_q.to(torch.int8), s_w
 

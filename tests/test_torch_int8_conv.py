@@ -25,7 +25,8 @@ from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.ops.int8_conv import (int8_conv, int8_conv3x3,
                                                int8_conv_plain,
                                                prepare_weights,
-                                               quantize_activations)
+                                               quantize_activations,
+                                               quantize_weights)
 
 torch.set_num_threads(2)
 
@@ -223,3 +224,25 @@ def test_quantize_by_reciprocal_equals_the_division():
         x = torch.from_numpy(np.concatenate([near.ravel(), spread]))
         want = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
         assert torch.equal(_quantize_by_reciprocal(x, s), want)
+
+
+def test_weight_scale_is_the_quotient():
+    """``quantize_weights``' s_w divides the per-channel amax by a tensor
+    (PyTorch's CUDA division by a Python scalar multiplies by its rounded
+    reciprocal instead): bitwise ``amax / torch.full_like(amax, 127.0)``,
+    and bitwise the JAX package's formula (``layers.py:253-254``) on a
+    seeded kernel whose channel scales span 1e-14..1e3 (the 1e-12 floor
+    included)."""
+    rng = np.random.RandomState(13)
+    o = 96
+    kernel = (rng.randn(o, 8, 3, 3)
+              * 10.0 ** rng.uniform(-14, 3, (o, 1, 1, 1))).astype(np.float32)
+    w_q, s_w = quantize_weights(torch.from_numpy(kernel))
+    amax = torch.clamp(torch.from_numpy(np.abs(kernel).max(axis=(1, 2, 3))),
+                       min=1e-12)
+    assert torch.equal(s_w, amax / torch.full_like(amax, 127.0))
+    hwio = jnp.asarray(kernel.transpose(2, 3, 1, 0))
+    want = jnp.maximum(jnp.max(jnp.abs(hwio), axis=(0, 1, 2)), 1e-12) / 127.0
+    assert np.array_equal(s_w.numpy(), np.asarray(want))
+    want_q = jnp.clip(jnp.round(hwio / want), -127, 127).astype(jnp.int8)
+    assert np.array_equal(w_q.permute(2, 3, 1, 0).numpy(), np.asarray(want_q))
