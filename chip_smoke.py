@@ -14,7 +14,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    γ/β), bitwise repeatability, and its kernels per call (4, and no
    other kernel with the weight layouts made beforehand);
 4. B2 check: NMS keep-mask kernel vs the plain greedy mask on clustered,
-   class-offset boxes with parked invalids: exactly equal;
+   class-offset boxes with parked invalids (``B2_CASES``: the b8 and b128
+   serving shapes, N = 2048, 63-65 and 1 boxes, exact IoU ties): exactly
+   equal and repeatable;
 5. B3 check: fused bottleneck backward kernel vs its plain version at the
    four stage shapes (batch 2 and 8, randomized γ/β, random bf16 dout):
    for dx and each parameter gradient, max |Δ|/max|ref| and correlation
@@ -32,13 +34,16 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``make_train_step`` at batch 8 on a fixed batch; launch counts per
    step (12 B1 + 12 B3), one step vs the plain path from the same
    parameters (losses, grad_norm, and every parameter's gradient leaf by
-   leaf), the same comparison for planted B3 faults, each of which must
-   be rejected, and the loss over 10 steps;
-8. B4/B5/B7 checks: fused GroupNorm+activation vs its plain version at
-   the P3/P4 head shapes (elu) and the stem shape (relu), bf16 and fp32,
-   and its backward vs autograd of the plain forward; the projection
-   block at res2 b0 (batch 2 and 8) to B1's bound; the stem epilogue
-   bitwise; each bitwise repeatable;
+   leaf), the same for the step with B4 in the model and for planted B3
+   faults, each of which must be rejected, and the loss over 10 steps;
+8. B4/B5/B7 checks: fused GroupNorm+activation vs its plain version, on
+   each of its paths (split; cluster where the image fits), at every
+   GroupNorm shape the model gives at or above the 2^18 gate (forward
+   hooks on the kernel, int8 and training paths) and at ``B4_EXTRA``,
+   bf16 and fp32, with its kernels per call (2 split, 1 cluster), and its
+   backward vs autograd of the plain forward; the projection block at
+   res2 b0 (batch 2 and 8) to B1's bound; the stem epilogue bitwise; each
+   bitwise repeatable;
 9. int8 serving: the flagship with ``quantize="int8"`` (and the fused
    flags, which the int8 gate ignores) through ``Detector`` at batch 8:
    59 B6 launches and no B1/B5; every weight scale s_w the correctly
@@ -49,10 +54,16 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    sides (stride 2 padding both sides) and fp32 in and out;
 10. ``fused_proj`` serving: 12 B1 + 1 B5 launches per forward, heads vs
    the unfused plain path;
-11. entry points: ``GroupNorm(use_kernel=True)`` on the P3/P4 head
-   activations and ``fused_stem`` on a 640-px batch (B4, B7: no model
-   config reaches them, as in the JAX package); ``fused_stem`` equals the
-   model's stem layers bitwise;
+11. B4 in the model (``gn``): every GroupNorm of the serving model set
+   to ``use_kernel`` (no config field, no default changed), counted (B4
+   launches equal the gated GroupNorm calls), heads vs the plain path,
+   the kernels next to each B4 launch (no copy or transpose), then in
+   turns with and without B4: b128 images/s on the kernel and int8
+   paths, b8 latency, the b32 ``fused_train`` step;
+   entry points: ``GroupNorm(use_kernel=True)`` at ``ENTRY_GN`` (P5
+   under the gate takes ``group_norm``) and ``fused_stem`` on a 640-px
+   batch (B7: no model config reaches it, as in the JAX package);
+   ``fused_stem`` equals the model's stem layers bitwise;
 12. timing: serving images/s and p50 at batch 8 and 128 (bf16 kernel,
    int8 and plain paths; ``fused_proj`` against the same config without
    it at 128); training step ms, images/s and peak memory of both paths
@@ -65,20 +76,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    on res2; B6 per conv shape
    three ways (the whole conv with prepared weights; its launches, and
    its GEMM alone, queued behind a sleep kernel so that only device time
-   counts, beside ``torch._int_mm`` on the same quantized operands);
+   counts, beside ``torch._int_mm`` on the same quantized operands); B2
+   at batch 8 and 128 by kernel, with the floor of its dependency chain;
+   B4 on each path at ``B4_SWEEP`` (the measurements behind its path
+   rule) and at ``B4_TIMED``, with and without the activation, beside
+   ``F.group_norm``;
 13. breakdown: ``torch.profiler`` device time by kernel group, idle share
    and kernels per call: serving at batch 8 and 128 (kernel, int8 and
-   plain paths) and training at batch 8 and 32 (``utils/profiling.py``).
+   plain paths; at 128 with B4 in the model too) and training at batch 8
+   and 32 (at 32 with B4 too) (``utils/profiling.py``).
 
-``--phases`` runs a comma-separated subset (``build,checks,int8,proj,
+``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
 entry,serving,training,timing,breakdown``) and prints no result lines:
 for a first call after a kernel change.  ``--phases parent`` (not in the
-default run) compares B1, B5 and B6 with a parent commit's: B1 and B5
-within B1's bound, timed in turns and B1 by launch group; B6 bitwise given
-the same s_x and weights.  Put that commit's ``ops/bottleneck.py``,
-``ops/int8_conv.py`` and ``ops/csrc/{bottleneck.cu,bottleneck_proj.cu,
-bottleneck_common.cuh,hopper_gemm.cuh,int8_conv.cu}`` in
-``parent_kernels/`` (git-ignored) first.
+default run) compares kernels with a parent commit's, each whose module
+is in ``parent_kernels/`` (git-ignored): B1 and B5 (``bottleneck.py``,
+within B1's bound, timed in turns, B1 by launch group), B2 (``nms.py``,
+equal masks, in turns), B4 (``groupnorm.py``, both within B4's bound, in
+turns), B6 (``int8_conv.py``, bitwise given the same s_x and weights).
+Put there that commit's ``ops/<module>.py`` and the ``ops/csrc`` sources
+and headers they build.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -86,6 +103,7 @@ line, and as the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -101,8 +119,11 @@ import torch
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.export import init_params
 from retinanet_tpu_torch.infer import Detector, benchmark
-from retinanet_tpu_torch.models.layers import (Conv, ConvGN, GroupNorm,
-                                               max_pool_same, resolve_groups)
+from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
+                                               ConvGN, GroupNorm,
+                                               group_norm, max_pool_same,
+                                               resolve_groups,
+                                               use_group_norm_kernel)
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops import bottleneck as b1
@@ -114,8 +135,10 @@ from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
 from retinanet_tpu_torch.train import (benchmark_train, create_train_state,
                                        make_train_step, synthetic_batch)
-from retinanet_tpu_torch.utils.profiling import (device_breakdown,
-                                                 kernel_launches)
+from retinanet_tpu_torch.utils import profiling
+from retinanet_tpu_torch.utils.profiling import (device_breakdown, group_of,
+                                                 kernel_launches,
+                                                 kernel_sequence)
 
 SIZE = 640  # the canvas side of every phase
 # (H, W, C, F) of the 12 identity blocks at 640 px, with their counts.
@@ -199,6 +222,20 @@ B4_GRAD_REL = 1e-3
 # 640 px: (name, H, W, C, activation).
 B4_SHAPES = (("P3", 80, 80, 256, "elu"), ("P4", 40, 40, 256, "elu"),
              ("stem", 320, 320, 64, "relu"))
+# B4 beyond the model's GroupNorm shapes (checked in bf16 and fp32 with
+# them): an odd-sided plane (a 600-px input's res3, 75x57: no row block or
+# cluster slice ends on a whole image) and the narrowest and widest channel
+# counts of the model's GroupNorms.  (H, W, C, activation).
+B4_EXTRA = ((75, 57, 256, "elu"), (75, 57, 64, "relu"), (40, 40, 64, None),
+            (20, 20, 2048, None))
+# Kernels per call of each B4 path: the split path's statistics and apply
+# launches, the cluster path's one.
+B4_PATH_KERNELS = {"split": 2, "cluster": 1}
+# GroupNorm modules driven as B4's entry point at batch 8: the P3 and P4
+# head activations, the stem's, res5's widest (name, H, W, C, activation),
+# and P5's, which falls under the 2^18 gate and must take group_norm.
+ENTRY_GN = B4_SHAPES + (("res5", 20, 20, 2048, None),
+                        ("P5", 20, 20, 256, "elu"))
 # res2 b0, the stride-1 projection block at 640 px: H, W, Cin, C, F.
 RES2_B0 = (160, 160, 64, 256, 64)
 # The stem conv's output at 640 px: H, W, C.
@@ -206,8 +243,8 @@ STEM = (320, 320, 64)
 # Clock cycles of the sleep kernel ahead of a queued timing (~5 ms), more
 # than the host takes to enqueue the timed calls.
 QUEUE_CYCLES = 10_000_000
-PHASES = ("build", "checks", "int8", "proj", "entry", "serving", "training",
-          "timing", "breakdown")
+PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
+          "training", "timing", "breakdown")
 # Run only when asked for (``--phases parent``): the parent commit's B1, B5
 # and B6 sources, placed in PARENT_DIR, against this tree's on the card.
 PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
@@ -453,14 +490,70 @@ def check_b3(device) -> float:
     return worst
 
 
-def check_b4(device) -> float:
-    """B4 vs its plain version at the head and stem shapes (batch 8, bf16
-    and fp32), bitwise repeatable; its backward vs autograd of the plain
-    forward at P3 in fp32.  Returns the worst max |Δ| of the forward."""
+def record_gn_shapes(device):
+    """The GroupNorm inputs of one forward of each path the in-model B4
+    A/B runs, at batch 8 (forward hooks): bf16 serving on the kernel path
+    and on the int8 path (every block eager), and the kernel path's
+    training forward.  Logs each distinct (H, W, C, activation, dtype)
+    with its calls per forward and whether it passes the 2^18 gate;
+    returns {path: {shape: calls per forward}}."""
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    found = {}
+    for path, config, training in (("kernels", flagship_config(), False),
+                                   ("int8", int8_config(), False),
+                                   ("train", train_config(), True)):
+        model = RetinaNet.from_config(config.model, 9, 80)
+        model.load_state_dict(init_params(
+            config, torch.Generator().manual_seed(0), 80))
+        model.to(device).eval()
+        shapes = found[path] = {}
+
+        def record(module, inputs, _shapes=shapes):
+            n, c, h, w = inputs[0].shape
+            key = (h, w, c, module.activation, inputs[0].dtype)
+            _shapes[key] = _shapes.get(key, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(record)
+                 for m in model.modules() if isinstance(m, GroupNorm)]
+        with torch.no_grad():
+            model(images, training=training)
+        for hook in hooks:
+            hook.remove()
+        for (h, w, c, act, dtype), n in sorted(shapes.items(),
+                                               key=lambda kv: str(kv[0])):
+            log("gn-shapes", path=path, shape=[8, h, w, c], activation=act,
+                dtype=str(dtype), calls_per_forward=n,
+                takes_b4=h * w * c >= GN_KERNEL_MIN_ELEMENTS)
+        del model
+    torch.cuda.empty_cache()
+    return found
+
+
+def b4_paths(h, w, c, dtype):
+    """The B4 paths an h x w x c image of ``dtype`` can take: the cluster
+    path where the image fits a cluster's shared memory."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    fits = b4.cluster_smem(h * w, c, resolve_groups(c), size)
+    return list(b4.PATHS) if fits <= b4.CLUSTER_SMEM else ["split"]
+
+
+def check_b4(device, gn_shapes) -> float:
+    """B4 vs its plain version, each path the shape allows, at every
+    GroupNorm shape of ``gn_shapes`` (``record_gn_shapes``) that passes the
+    gate and at B4_EXTRA, batch 8, in bf16 and fp32: within B4_REL and
+    bitwise repeatable; B4_PATH_KERNELS kernels per call on each path; its
+    backward vs autograd of the plain forward at P3 in fp32.  Returns the
+    worst max |Δ| of the forward."""
     gen = torch.Generator().manual_seed(6)
+    shapes = {(h, w, c, act) for found in gn_shapes.values()
+              for h, w, c, act, _ in found
+              if h * w * c >= GN_KERNEL_MIN_ELEMENTS}
+    shapes = sorted(shapes | set(B4_EXTRA), key=str)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, h, w, c, act in B4_SHAPES:
+        for h, w, c, act in shapes:
             x = (2 * torch.randn(8, h, w, c, generator=gen) + 0.5).to(dtype)
             gamma, beta = gn_affine(c, gen)
             x, gamma, beta = x.to(device), gamma.to(device), beta.to(device)
@@ -468,25 +561,59 @@ def check_b4(device) -> float:
             with torch.no_grad():
                 ref = b4.fused_group_norm_act_plain(x, gamma, beta, groups,
                                                     1e-5, act).float()
-                out = b4.fused_group_norm_act(x, gamma, beta, groups, 1e-5,
-                                              act)
-                again = b4.fused_group_norm_act(x, gamma, beta, groups, 1e-5,
-                                                act)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs()
-            over = int((err > B4_REL[dtype] * ref.abs().clamp(min=1.0)
-                        ).sum().item())
-            log("b4-check", shape=[8, h, w, c], at=name, activation=act,
-                dtype=str(dtype), max_abs_err=err.max().item(),
-                mean_abs_err=err.mean().item(),
-                bitwise_equal_share=(err == 0).float().mean().item(),
-                over_bound=over, bitwise_repeat=bool(torch.equal(out, again)))
-            if over or not torch.equal(out, again):
-                raise AssertionError(f"B4 disagrees with its plain version "
-                                     f"or is not repeatable at {name}, "
-                                     f"{dtype}")
-            worst = max(worst, err.max().item())
-            del x, ref, out, again
+                for path in b4_paths(h, w, c, dtype):
+                    out = b4.forward_cuda(x, gamma, beta, groups, 1e-5, act,
+                                          path)
+                    again = b4.forward_cuda(x, gamma, beta, groups, 1e-5,
+                                            act, path)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref).abs()
+                    over = int((err > B4_REL[dtype] * ref.abs().clamp(
+                        min=1.0)).sum().item())
+                    repeat = bool(torch.equal(out, again))
+                    log("b4-check", shape=[8, h, w, c], activation=act,
+                        dtype=str(dtype), path=path,
+                        default_path=b4.kernel_path(8, h * w, c, groups,
+                                                    dtype),
+                        max_abs_err=err.max().item(),
+                        mean_abs_err=err.mean().item(),
+                        bitwise_equal_share=(err == 0).float().mean().item(),
+                        over_bound=over, bitwise_repeat=repeat)
+                    if over or not repeat:
+                        raise AssertionError(
+                            f"B4 ({path}) disagrees with its plain version "
+                            f"or is not repeatable at {[h, w, c]}, {dtype}")
+                    worst = max(worst, err.max().item())
+                    del out, again
+            del x, ref
+    # Kernels per call, each path and dtype, over every shape at batch 2.
+    for dtype in (torch.bfloat16, torch.float32):
+        for path in b4.PATHS:
+            cases = []
+            for h, w, c, act in shapes:
+                if path not in b4_paths(h, w, c, dtype):
+                    continue
+                x = torch.randn(2, h, w, c, generator=gen).to(dtype)
+                cases.append((x.to(device), *(t.to(device) for t in
+                                              gn_affine(c, gen)),
+                              resolve_groups(c), act))
+
+            def call(_cases=cases, _path=path):
+                with torch.no_grad():
+                    for x, gamma, beta, groups, act in _cases:
+                        b4.forward_cuda(x, gamma, beta, groups, 1e-5, act,
+                                        _path)
+
+            kernels = kernel_launches(call, calls=1)
+            per_call = sum(n for n, _ in kernels.values()) / len(cases)
+            log("b4-kernels-per-call", path=path, dtype=str(dtype),
+                calls=len(cases), kernels_per_call=per_call,
+                kernels=sorted(k.split("(")[0][-60:] for k in kernels))
+            if per_call != B4_PATH_KERNELS[path]:
+                raise AssertionError(f"B4's {path} path launched {per_call} "
+                                     f"kernels per call in {dtype}, "
+                                     f"expected {B4_PATH_KERNELS[path]}")
+            del cases
     h, w, c = 80, 80, 256
     x = torch.randn(8, h, w, c, generator=gen).to(device)
     gamma, beta = (t.to(device) for t in gn_affine(c, gen))
@@ -574,27 +701,29 @@ def check_b7(device) -> float:
     return 0.0
 
 
-def compare_heads(label, got, want):
-    """Log and check each head level of ``got`` against ``want`` within
-    HEAD_RTOL/HEAD_ATOL; returns the share of bitwise-equal elements."""
-    equal = total = 0
+def compare_heads(label, got, want, check=True):
+    """Log and (``check``) check each head level of ``got`` against
+    ``want`` within HEAD_RTOL/HEAD_ATOL; returns the share of
+    bitwise-equal elements and the elements outside the bound."""
+    equal = total = outside = 0
     for head in ("classifications", "regressions"):
         for pn in ("P3", "P4", "P5", "P6", "P7"):
             g, w = got[head][pn].float(), want[head][pn].float()
             err = (g - w).abs()
             corr = torch.corrcoef(torch.stack([g.ravel(), w.ravel()]))[0, 1]
-            ok = bool((err <= HEAD_ATOL + HEAD_RTOL * w.abs()).all())
+            over = int((err > HEAD_ATOL + HEAD_RTOL * w.abs()).sum().item())
             equal += int((err == 0).sum().item())
             total += err.numel()
+            outside += over
             log(f"{label}-heads", head=head, level=pn,
                 max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
                 ref_std=w.std().item(), corr=corr.item(),
                 bitwise_equal_share=(err == 0).float().mean().item(),
-                within_bound=ok)
-            if not ok:
+                within_bound=not over, outside_bound=over)
+            if over and check:
                 raise AssertionError(f"{label}: heads disagree at "
                                      f"{head}/{pn}")
-    return equal / total
+    return equal / total, outside
 
 
 def int8_config(batch: int = 8) -> Config:
@@ -706,7 +835,7 @@ def check_int8_serving(device):
             want = detector.model(images)
         finally:
             b6.int8_conv = real
-    share = compare_heads("int8", got, want)
+    share = compare_heads("int8", got, want)[0]
     log("int8-vs-plain", bitwise_equal_share=share)
     del detector, got, want
     torch.cuda.empty_cache()
@@ -810,7 +939,8 @@ def check_fused_proj(device):
     plain.load_state_dict(state)
     plain.to(device).eval()
     with torch.inference_mode():
-        share = compare_heads("proj", detector.model(images), plain(images))
+        share = compare_heads("proj", detector.model(images),
+                              plain(images))[0]
     log("proj-vs-plain", bitwise_equal_share=share)
     del detector, plain
     torch.cuda.empty_cache()
@@ -825,15 +955,16 @@ def stem_inputs(gen, device):
 
 
 def drive_entry_points(device):
-    """B4 and B7 have no model path (no config reaches them, as in the JAX
-    package), so their main path is their opt-in entry points, counted:
-    ``GroupNorm(use_kernel=True)`` on the P3 and P4 head activations
-    (elu, bf16, batch 8) and ``fused_stem`` on a 640-px batch of 8.  The
-    modules' outputs are held to B4's bound against the plain version,
-    and ``fused_stem`` must equal the model's stem layers bitwise."""
+    """B4's and B7's entry points outside any config (as in the JAX
+    package), counted: ``GroupNorm(use_kernel=True)`` at ENTRY_GN's shapes
+    (bf16, batch 8), of which the four at or above the 2^18 gate launch B4
+    and P5 takes ``group_norm``, and ``fused_stem`` on a 640-px batch of 8.
+    The B4 modules' outputs are held to B4's bound against the plain
+    version, P5's must equal ``group_norm``, and ``fused_stem`` must equal
+    the model's stem layers bitwise."""
     gen = torch.Generator().manual_seed(10)
     mods, xs = [], []
-    for _, h, w, c, act in B4_SHAPES[:2]:
+    for _, h, w, c, act in ENTRY_GN:
         mod = GroupNorm(c, activation=act, use_kernel=True)
         with torch.no_grad():
             mod.gamma.copy_(gn_affine(c, gen)[0])
@@ -843,7 +974,7 @@ def drive_entry_points(device):
             torch.bfloat16).to(device).contiguous(
             memory_format=torch.channels_last))
     x, w, gamma, beta = stem_inputs(gen, device)
-    # The main path, counted: both GroupNorms and one stem.
+    # The main path, counted: the GroupNorms and one stem.
     b4.fused_group_norm_act.launches = 0
     b7.gn_relu_maxpool.launches = 0
     with torch.no_grad():
@@ -852,19 +983,33 @@ def drive_entry_points(device):
     torch.cuda.synchronize()
     launches = {"b4": b4.fused_group_norm_act.launches,
                 "b7": b7.gn_relu_maxpool.launches}
-    log("entry-launches", **launches)
-    if launches != {"b4": 2, "b7": 1}:
-        raise AssertionError(f"expected 2 B4 and 1 B7 launches, got "
+    gated = sum(h * wd * c >= GN_KERNEL_MIN_ELEMENTS
+                for _, h, wd, c, _ in ENTRY_GN)
+    log("entry-launches", **launches, gn_modules=len(mods),
+        gn_at_or_above_gate=gated)
+    if launches != {"b4": gated, "b7": 1}:
+        raise AssertionError(f"expected {gated} B4 and 1 B7 launches, got "
                              f"{launches}")
-    for (name, h, wd, c, act), mod, t, out in zip(B4_SHAPES, mods, xs, outs):
+    for (name, h, wd, c, act), mod, t, out in zip(ENTRY_GN, mods, xs, outs):
+        if h * wd * c < GN_KERNEL_MIN_ELEMENTS:
+            equal = bool(torch.equal(out, group_norm(
+                t, mod.gamma, mod.beta, mod.groups, mod.eps, act)))
+            log("entry-b4", at=name, below_gate=True,
+                bitwise_group_norm=equal)
+            if not equal:
+                raise AssertionError(f"GroupNorm below the gate is not "
+                                     f"group_norm at {name}")
+            continue
         ref = b4.fused_group_norm_act_plain(
             t.permute(0, 2, 3, 1), mod.gamma, mod.beta, resolve_groups(c),
             1e-5, act).permute(0, 3, 1, 2).float()
         err = (out.float() - ref).abs()
         over = int((err > B4_REL[torch.bfloat16] * ref.abs().clamp(min=1.0)
                     ).sum().item())
-        log("entry-b4", at=name, max_abs_err=err.max().item(),
-            over_bound=over)
+        log("entry-b4", at=name, path=b4.kernel_path(8, h * wd, c,
+                                                     resolve_groups(c),
+                                                     torch.bfloat16),
+            max_abs_err=err.max().item(), over_bound=over)
         if over:
             raise AssertionError(f"GroupNorm(use_kernel=True) disagrees at "
                                  f"{name}")
@@ -900,18 +1045,29 @@ def clustered_boxes(batch, n, gen, quantized=False):
     return torch.where(valid[..., None], boxes, boxes - 1e4).float()
 
 
+# B2's checks, (batch, N) and whether the boxes sit on a coarse grid: the
+# b8 and b128 serving shapes, the largest N, blocks that end before, at
+# and one box into a 64-box word, and exact IoU ties.
+B2_CASES = (((8, 1000), False), ((128, 1000), False), ((3, 200), False),
+            ((1, 2048), False), ((2, 63), False), ((2, 64), False),
+            ((2, 65), False), ((1, 1), False), ((8, 1000), True))
+
+
 def check_b2(device) -> int:
+    """B2's keep mask vs the plain greedy mask at B2_CASES: exactly equal
+    and repeatable."""
     gen = torch.Generator().manual_seed(2)
     mismatches = 0
-    for shape, quantized in (((8, 1000), False), ((3, 200), False),
-                             ((8, 1000), True)):
+    for shape, quantized in B2_CASES:
         boxes = clustered_boxes(*shape, gen, quantized).to(device)
         want = b2._greedy_keep_mask(boxes, 0.5)
         got = b2.nms_keep_mask_batch(boxes, 0.5)
+        again = b2.nms_keep_mask_batch(boxes, 0.5)
         diff = int((got != want).sum().item())
         log("b2-check", shape=[*shape, 4], quantized=quantized,
-            kept=int(want.sum().item()), mismatches=diff)
-        if diff:
+            kept=int(want.sum().item()), mismatches=diff,
+            bitwise_repeat=bool(torch.equal(got, again)))
+        if diff or not torch.equal(got, again):
             raise AssertionError(f"B2 keep mask differs at {shape}")
         mismatches += diff
     return mismatches
@@ -1001,6 +1157,240 @@ def check_flagship(device):
     return launches
 
 
+def is_layout_copy(name: str) -> bool:
+    """A kernel that copies or transposes a tensor within its dtype (a
+    cast, such as a conv kernel's fp32 to bf16, is not one)."""
+    low = name.lower()
+    return "direct_copy" in low or "transpose" in low
+
+
+def is_cast(name: str) -> bool:
+    return "copy_kernel" in name.lower() and not is_layout_copy(name)
+
+
+def b4_neighbours(names):
+    """The kernels just before and just after each run of B4 kernels."""
+    around = []
+    for i, name in enumerate(names):
+        if "b4_group_norm" not in name:
+            continue
+        for j in (i - 1, i + 1):
+            if 0 <= j < len(names) and "b4_group_norm" not in names[j]:
+                around.append(names[j])
+    return around
+
+
+@contextlib.contextmanager
+def b4_plain():
+    """B4's plain version in place of its kernel on the card (the
+    wrapper's ``forward_cuda``; its autograd backward is unchanged), as the
+    int8 check patches B6's."""
+    real = b4.forward_cuda
+    b4.forward_cuda = (
+        lambda x, gamma, beta, groups, eps, activation, path=None:
+        b4.fused_group_norm_act_plain(x, gamma, beta, groups, eps,
+                                      activation))
+    try:
+        yield
+    finally:
+        b4.forward_cuda = real
+
+
+def gn_as_kernel_path(model):
+    """``use_kernel`` on the GroupNorms of an unfused ``model`` that take
+    B4 on the kernel path: every one but those inside the identity blocks,
+    which B1 (and B3) run with the model's bf16 affine."""
+    use_group_norm_kernel(model)
+    for block in model.modules():
+        if isinstance(block, ResNetBottleneck) and not block.project:
+            use_group_norm_kernel(block, False)
+
+
+def check_gn_model(device, gn_shapes):
+    """The in-model B4 A/B: every GroupNorm of ``Detector.model`` on B4
+    (``use_group_norm_kernel``: the JAX module's ``use_pallas`` set for the
+    whole model; no config or default changes), the bench serving config
+    at batch 8, counted: B4 launches per forward equal the recorded
+    GroupNorm calls at or above the gate (``record_gn_shapes``); each B4
+    call within B4_REL of its plain version on the model's activations;
+    the heads at least as close to the float32 model as the plain path's
+    with the model's own GroupNorm, and logged against the same path with
+    B4's plain version and the unfused plain path with it; the kernels of
+    a forward
+    with and without B4, and the kernels next to each B4 launch (a copy or
+    transpose there would be a layout change around B4, what sank the JAX
+    package's in-model GroupNorm).  Returns the launches."""
+    config = flagship_config()
+    state = init_params(config, torch.Generator().manual_seed(0), 80)
+    detector = Detector(config, state, [str(i) for i in range(80)], device)
+    switched = use_group_norm_kernel(detector.model)
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    gated = sum(n for (h, w, c, _, _), n in gn_shapes["kernels"].items()
+                if h * w * c >= GN_KERNEL_MIN_ELEMENTS)
+    # The main path, counted: one serving batch with B4 in the model.
+    b1.fused_bottleneck.launches = 0
+    b2.nms_keep_mask_batch.launches = 0
+    b4.fused_group_norm_act.launches = 0
+    out = detector(images)
+    torch.cuda.synchronize()
+    launches = {"b4": b4.fused_group_norm_act.launches,
+                "b1": b1.fused_bottleneck.launches,
+                "b2": b2.nms_keep_mask_batch.launches}
+    log("gn-launches", gn_modules=switched,
+        gn_calls_at_or_above_gate=gated, **launches)
+    if launches != {"b4": gated, "b1": 12, "b2": 1}:
+        raise AssertionError(f"expected {gated} B4, 12 B1 and 1 B2 launches "
+                             f"per forward with B4 in the model, got "
+                             f"{launches}")
+    if (not all(bool(torch.isfinite(t.float()).all())
+                for t in (out.boxes, out.scores))
+            or tuple(out.boxes.shape) != (8, 1000, 4)):
+        raise AssertionError("bad detections with B4 in the model")
+    # Each B4 call of the forward against B4's plain version on the same
+    # model activations (forward hooks): within B4_REL.
+    calls = []
+
+    def against_plain(module, inputs, output):
+        x = inputs[0]
+        n, c, h, w = x.shape
+        if h * w * c < GN_KERNEL_MIN_ELEMENTS:
+            return
+        ref = b4.fused_group_norm_act_plain(
+            x.permute(0, 2, 3, 1), module.gamma, module.beta,
+            resolve_groups(c, module.groups), module.eps,
+            module.activation).permute(0, 3, 1, 2).float()
+        err = (output.float() - ref).abs()
+        calls.append((int((err > B4_REL[x.dtype] * ref.abs().clamp(min=1.0))
+                          .sum().item()), err.max().item(),
+                      (err == 0).float().mean().item(),
+                      x.permute(0, 2, 3, 1).is_contiguous()))
+
+    hooks = [m.register_forward_hook(against_plain)
+             for m in detector.model.modules() if isinstance(m, GroupNorm)]
+    with torch.inference_mode():
+        got = detector.model(images)
+    for hook in hooks:
+        hook.remove()
+    log("gn-calls-vs-plain", calls=len(calls),
+        over_bound=sum(c[0] for c in calls),
+        max_abs_err=max(c[1] for c in calls),
+        min_bitwise_equal_share=min(c[2] for c in calls),
+        inputs_not_channels_last=sum(not c[3] for c in calls))
+    if len(calls) != gated or any(c[0] for c in calls):
+        raise AssertionError("a B4 call in the model disagrees with its "
+                             "plain version")
+    if not all(c[3] for c in calls):
+        raise AssertionError("a GroupNorm input in the model is not "
+                             "channels_last: B4's NHWC view would copy it")
+    # The heads, logged with their elements outside the JAX bound: against
+    # the same path with B4's plain version (``b4_plain``), and against the
+    # unfused plain path with B4's plain version where the kernel path has
+    # B4 (``gn_as_kernel_path``).  Both share the kernel path's rounding
+    # points and part from it in summation orders, which 36 more GroupNorms
+    # carry through the network.
+    plain = RetinaNet.from_config(flagship_config(fused=False).model, 9, 80)
+    plain.load_state_dict(state)
+    plain.to(device).eval()
+    with torch.inference_mode():
+        gn_as_kernel_path(plain)
+        with b4_plain():
+            want = detector.model(images)
+            want_plain = plain(images)
+        use_group_norm_kernel(plain, False)
+        share, outside = compare_heads("gn", got, want, check=False)
+        share_plain, outside_plain = compare_heads(
+            "gn-plain-path", got, want_plain, check=False)
+        eager = plain(images)
+    log("gn-vs-plain", bitwise_equal_share=share, outside_bound=outside,
+        plain_path_bitwise_equal_share=share_plain,
+        plain_path_outside_bound=outside_plain)
+    # Against the model's own GroupNorm (bf16 scale, shift and affine), B4
+    # (fp32 affine) differs in where bf16 rounds (ROADMAP C.6): both held
+    # to the float32 model, B4 at least as close as the eager path
+    # (TRAIN_TRUTH_FACTOR/SLACK, the repo's "at least as accurate" bound).
+    f32 = flagship_config(fused=False)
+    f32 = RetinaNet.from_config(dataclasses.replace(
+        f32.model, compute_dtype="float32"), 9, 80)
+    f32.load_state_dict(state)
+    f32.to(device).eval()
+    with torch.inference_mode():
+        truth = f32(images)
+    worse = []
+    for head in ("classifications", "regressions"):
+        for pn in ("P3", "P4", "P5", "P6", "P7"):
+            t = truth[head][pn].float()
+            err = {k: ((v[head][pn].float() - t).norm() / t.norm()).item()
+                   for k, v in (("b4", got), ("eager_gn", eager))}
+            diff = (got[head][pn].float() - eager[head][pn].float()).abs()
+            log("gn-vs-float32", head=head, level=pn, rel_l2_err=err,
+                max_abs_diff_b4_vs_eager_gn=diff.max().item(),
+                mean_abs_diff_b4_vs_eager_gn=diff.mean().item())
+            if err["b4"] > (TRAIN_TRUTH_FACTOR * err["eager_gn"]
+                            + TRAIN_TRUTH_SLACK):
+                worse.append(f"{head}/{pn}")
+    if worse:
+        raise AssertionError(f"B4 in the model is less accurate than the "
+                             f"model's GroupNorm at {worse}")
+    del plain, f32, got, want, want_plain, eager, truth
+    order = {}
+    for on in (False, True):
+        use_group_norm_kernel(detector.model, on)
+        with torch.inference_mode():
+            order[on] = [name for name, _ in kernel_sequence(
+                lambda: detector.model(images))]
+    around = b4_neighbours(order[True])
+    groups = {}
+    for name in around:
+        groups[group_of(name)] = groups.get(group_of(name), 0) + 1
+    log("gn-layout", kernels_per_forward=[len(order[False]),
+                                          len(order[True])],
+        b4_kernels=sum("b4_group_norm" in n for n in order[True]),
+        layout_copies=[sum(map(is_layout_copy, order[False])),
+                       sum(map(is_layout_copy, order[True]))],
+        casts=[sum(map(is_cast, order[False])),
+               sum(map(is_cast, order[True]))],
+        kernels_next_to_b4=len(around),
+        layout_copies_next_to_b4=sum(map(is_layout_copy, around)),
+        casts_next_to_b4=sum(map(is_cast, around)),
+        groups_next_to_b4=groups)
+    if sum(map(is_layout_copy, around)):
+        raise AssertionError("a copy or transpose kernel runs next to B4 in "
+                             "the model")
+    del detector, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_gn_model(device):
+    """The in-model B4 A/B timed in turns (without B4, with, with,
+    without): serving images/s and latency at batch 128 on the kernel and
+    int8 paths and at batch 8 on the kernel path, and the batch-32
+    ``fused_train`` step (B4 forward, its plain backward)."""
+    for path, batch in (("kernels", 128), ("int8", 128), ("kernels", 8)):
+        for on in (False, True, True, False):
+            r = benchmark(serving_config(path, batch), batch_size=batch,
+                          steps=10 if batch == 8 else 5, warmup=2,
+                          num_classes=80, device=device,
+                          group_norm_kernel=on)
+            log("gn-e2e-time", path=path, batch=batch, b4=on,
+                images_per_sec=r["images_per_sec"],
+                p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
+            torch.cuda.empty_cache()
+    for on in (False, True, True, False):
+        r = benchmark_train(train_config(32), batch_size=32, steps=5,
+                            warmup=2, num_classes=80, device=device,
+                            group_norm_kernel=on)
+        log("gn-train-time", path="kernels", batch=32, b4=on,
+            step_ms=r["step_ms"], images_per_sec=r["images_per_sec"],
+            peak_memory_gib=r["peak_memory_bytes"] / 2 ** 30,
+            final_loss=r["final_loss"])
+        if not r["finite"]:
+            raise AssertionError("non-finite loss timing the step with B4")
+        torch.cuda.empty_cache()
+
+
 def train_config(batch: int = 8, fused: bool = True) -> Config:
     """The flagship's training config: resnet_50_dense at 640 px, bf16,
     the Config's default momentum SGD; ``fused_train`` on the kernel path."""
@@ -1016,10 +1406,12 @@ TRAIN_KEYS = ("total_loss", "class_loss", "regr_loss", "regularization_loss",
               "grad_norm")
 
 
-def compare_steps(label, got, plain, truth, identity) -> bool:
+def compare_steps(label, got, plain, truth, identity,
+                  grad_norm=True) -> bool:
     """Whether a training step ``got`` agrees with the bf16 plain path's
     ``plain`` and is as close to the float32 path's ``truth`` (each a pair
-    of scalars and {parameter: gradient}); logs the losses' and
+    of scalars and {parameter: gradient}): its losses, every gradient leaf
+    and (``grad_norm``) its gradient norm; logs the losses' and
     grad_norm's relative errors against ``plain`` and, for the identity
     blocks (``identity``, the 108 parameters B3 differentiates) and the
     other leaves, the worst leaf and quantiles of the ratio of ``got``'s
@@ -1048,13 +1440,15 @@ def compare_steps(label, got, plain, truth, identity) -> bool:
                 "plain_err_p50": float(torch.tensor(
                     [errs[n][1] for n in names]).median())}
 
-    agrees = (not bad and rel["grad_norm"] <= TRAIN_NORM_REL
-              and max(rel[k] for k in TRAIN_KEYS[:4]) <= TRAIN_LOSS_REL)
+    leaves_and_losses = (not bad and max(rel[k] for k in TRAIN_KEYS[:4])
+                         <= TRAIN_LOSS_REL)
+    norm_ok = rel["grad_norm"] <= TRAIN_NORM_REL
+    agrees = leaves_and_losses and (norm_ok or not grad_norm)
     log("train-vs-plain", run=label, rel=rel, leaves=len(errs),
         skipped=skipped, identity_blocks=summary(identity),
         other_leaves=summary(set(errs) - set(identity)),
         leaves_out_of_bound=len(bad), first_out_of_bound=bad[:3],
-        agrees=agrees)
+        grad_norm_within=norm_ok, grad_norm_held=grad_norm, agrees=agrees)
     return agrees
 
 
@@ -1085,9 +1479,14 @@ def check_training(device):
     f32 = config.replace(model=dataclasses.replace(
         config.model, compute_dtype="float32"))
     refs = {}
-    for path, cfg in (("plain", config), ("float32", f32)):
+    for path, cfg in (("plain", config), ("float32", f32),
+                      ("plain+b4", config)):
         model = RetinaNet.from_config(cfg.model, 9, 80).to(device)
-        _, metrics, refs[path], finite = first_step(model, cfg, True)
+        with contextlib.ExitStack() as stack:
+            if path == "plain+b4":  # B4's plain version where kernels have B4
+                gn_as_kernel_path(model)
+                stack.enter_context(b4_plain())
+            _, metrics, refs[path], finite = first_step(model, cfg, True)
         log("train-step", path=path, batch=8, **refs[path][0],
             num_fg=int(metrics["num_fg"]), finite=finite)
         if not finite:
@@ -1126,6 +1525,25 @@ def check_training(device):
 
     sound = compare_steps("kernels", got, refs["plain"], refs["float32"],
                           identity)
+    # The same step with every GroupNorm's forward on B4 (its backward the
+    # plain fp32 gradient): its losses and every gradient leaf held as the
+    # kernel path's are, against the plain path with B4's plain version in
+    # the same GroupNorms (the same rounding points); its gradient norm,
+    # which 36 more summation orders move by more than the kernel path's
+    # 0.1%, logged.  Against the plain path with the model's own GroupNorm
+    # (bf16 affine, ROADMAP C.6), logged.
+    use_group_norm_kernel(model)
+    b4.fused_group_norm_act.launches = 0
+    with_b4 = first_step(model, config)[2]
+    torch.cuda.synchronize()
+    b4_launches = b4.fused_group_norm_act.launches
+    use_group_norm_kernel(model, False)
+    log("train-launches", path="kernels+b4", b4=b4_launches, steps=1)
+    b4_sound = compare_steps("kernels+b4", with_b4, refs["plain+b4"],
+                             refs["float32"], identity, grad_norm=False)
+    compare_steps("kernels+b4 vs plain with the model's GroupNorm", with_b4,
+                  refs["plain"], refs["float32"], identity)
+    del with_b4
     real = b3.fused_bottleneck_bwd
     missed = []
     for fault, plant in TRAIN_FAULTS.items():
@@ -1146,11 +1564,30 @@ def check_training(device):
     if not sound:
         raise AssertionError("the kernel path's training step disagrees "
                              "with the plain path")
+    if not b4_sound or not b4_launches:
+        raise AssertionError(f"the training step with B4 in the model "
+                             f"({b4_launches} launches) disagrees with the "
+                             f"plain path")
     if missed:
         raise AssertionError(f"planted B3 faults passed the check: {missed}")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"the loss did not fall: {losses}")
     return launches
+
+
+# B2's serial chain per box: a bit test and an OR, each an integer
+# instruction whose result the next one waits for (~4 cycles each).
+B2_CHAIN_OPS, INT_OP_CYCLES = 2, 4
+
+
+def b2_chain_floor_ms(n):
+    """The least time of B2's dependency chain over ``n`` boxes at the
+    card's maximum SM clock: images run in parallel, one warp each."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return n * B2_CHAIN_OPS * INT_OP_CYCLES / (mhz * 1e6) * 1e3
 
 
 def nms_bound(batch, n):
@@ -1255,7 +1692,17 @@ def time_kernels(device):
         bound_by=by, blocks_per_step=count,
         launches_and_ms=b3_groups(call)[0])
     del x, params, dout
-    for shape in ((8, 1000), (1, 1000)):
+    timing["b2"] = time_b2(device, gen)
+    torch.cuda.empty_cache()
+    return timing
+
+
+def time_b2(device, gen):
+    """B2 at the serving shapes (batch 8 and 128, and the single-image
+    entry) against its plain version, with its device time per kernel, its
+    operations bound and the floor of its dependency chain; returns the
+    batch-8 figures for the kernel line."""
+    for shape in ((8, 1000), (128, 1000), (1, 1000)):
         boxes = clustered_boxes(*shape, gen).to(device)
         single = shape[0] == 1
         kernel = ((lambda: b2.nms_keep_mask(boxes[0], 0.5)) if single else
@@ -1264,13 +1711,16 @@ def time_kernels(device):
         p_ms = cuda_time_ms(lambda: b2._greedy_keep_mask(boxes, 0.5), 3,
                             warmup=1)
         bound, by = nms_bound(*shape)
+        kernels = {name.split("b2_nms::", 1)[-1].split("(")[0]: v
+                   for name, v in kernel_launches(kernel).items()}
         log("b2-time", shape=[*shape, 4], kernel_ms=k_ms, plain_ms=p_ms,
             bound_ms=bound, bound_by=by,
+            chain_floor_ms=b2_chain_floor_ms(shape[1]),
+            launches_and_device_ms=kernels,
             entry="nms_keep_mask" if single else "nms_keep_mask_batch")
-        if not single:
-            timing["b2"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                                bound_by=by)
-    torch.cuda.empty_cache()
+        if shape[0] == 8:
+            timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                          bound_by=by)
     return timing
 
 
@@ -1355,37 +1805,121 @@ def time_b6(device, int8_shapes, gen):
     return dict(t, **lib)
 
 
+# B4 timed at the P3 and P4 head activations at batch 8 (the sums go into
+# the kernel line) and at P3 at the serving bench's batch 128, and at the
+# stem's (name, batch, H, W, C, activation).
+B4_TIMED = (("P3", 8, 80, 80, 256, "elu"), ("P4", 8, 40, 40, 256, "elu"),
+            ("P3", 128, 80, 80, 256, "elu"), ("stem", 8, 320, 320, 64,
+                                              "relu"))
+
+
+# Image shapes (H, W, C) of the model's gated GroupNorms that the cluster
+# path can hold, from 0.8 to 3.3 MB in bf16: B4's paths timed at batch 8
+# and 128 to set the wrapper's rule (``groupnorm.kernel_path``).
+B4_SWEEP = ((40, 40, 256), (20, 20, 2048), (40, 40, 512), (80, 80, 128),
+            (40, 40, 1024), (80, 80, 256), (160, 160, 64))
+
+
+def sweep_b4_paths(device, gen):
+    """Each B4 path (the cluster path also with 8 CTAs per image) at
+    B4_SWEEP, bf16, no activation, batch 8 and 128."""
+    for h, w, c in B4_SWEEP:
+        groups = resolve_groups(c)
+        gamma, beta = (p.to(device) for p in gn_affine(c, gen))
+        for batch in (8, 128):
+            x = torch.randn(batch, h, w, c, generator=gen).to(
+                torch.bfloat16).to(device)
+            ms = {}
+            for label, path, size in (("split", "split", 16),
+                                      ("cluster16", "cluster", 16),
+                                      ("cluster8", "cluster", 8)):
+                saved, b4.CLUSTER_SIZE = b4.CLUSTER_SIZE, size
+                try:
+                    if (path == "split" or b4.cluster_smem(
+                            h * w, c, groups, 2) <= b4.CLUSTER_SMEM):
+                        with torch.no_grad():
+                            ms[label] = cuda_time_ms(
+                                lambda: b4.forward_cuda(x, gamma, beta,
+                                                        groups, 1e-5, None,
+                                                        path),
+                                20 if batch == 8 else 5)
+                finally:
+                    b4.CLUSTER_SIZE = saved
+            log("b4-paths", shape=[batch, h, w, c],
+                image_bytes=h * w * c * 2,
+                cluster_smem_per_cta=b4.cluster_smem(h * w, c, groups, 2),
+                rule=b4.kernel_path(batch, h * w, c, groups,
+                                    torch.bfloat16),
+                ms=ms)
+            del x
+
+
+def time_b4(device, gen):
+    """B4 at B4_TIMED in bf16 on each path its shape allows, with the
+    activation and without it, against its plain version, ``F.group_norm``
+    (the one PyTorch call for the same function: no activation) and, for
+    reference, ``F.elu(F.group_norm(...))``.  The kernel line takes the sum
+    over the batch-8 P3 and P4 calls, without the activation."""
+    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    gn = torch.nn.functional.group_norm
+    for name, batch, h, w, c, act in B4_TIMED:
+        x = torch.randn(batch, h, w, c, generator=gen).to(
+            torch.bfloat16).to(device)
+        gamma, beta = (p.to(device) for p in gn_affine(c, gen))
+        groups = resolve_groups(c)
+        xc = x.permute(0, 3, 1, 2)
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        iters = 20 if batch == 8 else 5
+        paths = {}
+        with torch.no_grad():
+            for path in b4_paths(h, w, c, x.dtype):
+                for a in (None, act):
+                    paths[f"{path}/{a}"] = cuda_time_ms(
+                        lambda: b4.forward_cuda(x, gamma, beta, groups, 1e-5,
+                                                a, path), iters)
+            k_ms = cuda_time_ms(lambda: b4.fused_group_norm_act(
+                x, gamma, beta, groups, 1e-5, None), iters)
+            k_act = cuda_time_ms(lambda: b4.fused_group_norm_act(
+                x, gamma, beta, groups, 1e-5, act), iters)
+            p_ms = cuda_time_ms(lambda: b4.fused_group_norm_act_plain(
+                x, gamma, beta, groups, 1e-5, None), iters // 2)
+            l_ms = cuda_time_ms(lambda: gn(xc, groups, g16, b16, 1e-5),
+                                iters)
+            l_act = cuda_time_ms(lambda: torch.nn.functional.elu(
+                gn(xc, groups, g16, b16, 1e-5)), iters)
+        with torch.no_grad():
+            kernels = {
+                path: {k.split("b4_group_norm::", 1)[-1].split("<")[0]: v
+                       for k, v in kernel_launches(
+                           lambda: b4.forward_cuda(x, gamma, beta, groups,
+                                                   1e-5, None, path)).items()}
+                for path in b4_paths(h, w, c, x.dtype)}
+        ms, by = bound(0, 2 * x.numel() * 2 + 2 * c * 4, PEAK_FP32)
+        log("b4-time", at=name, shape=[batch, h, w, c], activation=act,
+            path=b4.kernel_path(batch, h * w, c, groups, x.dtype),
+            launches_and_device_ms_by_path=kernels,
+            kernel_ms=k_ms, kernel_ms_with_activation=k_act,
+            ms_by_path_and_activation=paths, plain_ms=p_ms,
+            library_ms=l_ms, library_ms_group_norm_then_elu=l_act,
+            bound_ms=ms, bound_by=by)
+        if batch == 8 and name in ("P3", "P4"):
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                           ("library_ms", l_ms), ("bound_ms", ms)):
+                t[key] += v
+        del x, xc
+    torch.cuda.empty_cache()
+    return dict(t, bound_by="bytes")
+
+
 def time_new_kernels(device, int8_shapes):
     """B4-B7 vs their plain versions (and a PyTorch call computing the same
     function, where one exists) at their main paths' shapes, batch 8:
-    B4 at the P3/P4 head activations (library: ``F.group_norm`` without
-    the activation), B5 at res2 b0, B6 summed over the 59 convs of an
-    int8 forward (``time_b6``), B7 at the stem's output."""
+    B4 at the P3/P4 head activations (``time_b4``), B5 at res2 b0, B6
+    summed over the 59 convs of an int8 forward (``time_b6``), B7 at the
+    stem's output."""
     gen = torch.Generator().manual_seed(11)
-    timing = {}
-    t = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for name, h, w, c, act in B4_SHAPES[:2]:
-        x = torch.randn(8, h, w, c, generator=gen).to(torch.bfloat16).to(
-            device)
-        gamma, beta = (p.to(device) for p in gn_affine(c, gen))
-        xc = x.permute(0, 3, 1, 2)
-        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-        with torch.no_grad():
-            k_ms = cuda_time_ms(lambda: b4.fused_group_norm_act(
-                x, gamma, beta, 32, 1e-5, act), 20)
-            p_ms = cuda_time_ms(lambda: b4.fused_group_norm_act_plain(
-                x, gamma, beta, 32, 1e-5, act), 10)
-            l_ms = cuda_time_ms(lambda: torch.nn.functional.group_norm(
-                xc, 32, g16, b16, 1e-5), 20)
-        ms, by = bound(0, 2 * x.numel() * 2 + 2 * c * 4, PEAK_FP32)
-        log("b4-time", at=name, shape=[8, h, w, c], activation=act,
-            kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=ms,
-            bound_by=by)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                       ("bound_ms", ms)):
-            t[key] += v
-    timing["b4"] = dict(t, bound_by="bytes")
-
+    sweep_b4_paths(device, gen)
+    timing = {"b4": time_b4(device, gen)}
     x, params = proj_inputs(8, gen, device)
     h, w, cin, c, f = RES2_B0
     wts = b1.prepare_proj_weights(*params[::3])
@@ -1479,39 +2013,44 @@ def time_training(device):
 def breakdown(device):
     """Device time by kernel group, idle share and kernels per call:
     serving through ``Detector`` at batch 8 and 128 (kernel, int8 and
-    plain paths), training through ``make_train_step`` (no metrics) at
-    batch 8 and 32 (kernel and plain paths)."""
+    plain paths; at 128 the kernel and int8 paths with B4 in the model
+    too), training through ``make_train_step`` (no metrics) at batch 8 and
+    32 (kernel and plain paths; at 32 the kernel path with B4 too)."""
     levels = build_levels()
-    for batch in (8, 128):
-        for path in ("kernels", "int8", "plain"):
-            config = serving_config(path, batch)
-            detector = Detector(config, init_params(
-                config, torch.Generator().manual_seed(0), 80),
-                [str(i) for i in range(80)], device)
-            images = torch.randn(batch, SIZE, SIZE, 3,
-                                 generator=torch.Generator().manual_seed(3)
-                                 ).to(device)
-            log("breakdown", slice="serving", path=path, batch=batch,
-                **device_breakdown(lambda: detector(images)))
-            del detector, images
-            torch.cuda.empty_cache()
-    for batch in (8, 32):
-        for path in ("kernels", "plain"):
-            config = train_config(batch, fused=path == "kernels")
-            model = RetinaNet.from_config(config.model, 9, 80).to(device)
-            box = [create_train_state(model, config, init_params(
-                config, torch.Generator().manual_seed(0), 80))]
-            step = make_train_step(model, levels, config, with_metrics=False)
-            data = synthetic_batch(batch, SIZE, config.assign.max_boxes,
-                                   device)
+    runs = [(8, p) for p in ("kernels", "int8", "plain")]
+    runs += [(128, p) for p in ("kernels", "kernels+b4", "int8", "int8+b4",
+                                "plain")]
+    for batch, path in runs:
+        config = serving_config(path.split("+")[0], batch)
+        detector = Detector(config, init_params(
+            config, torch.Generator().manual_seed(0), 80),
+            [str(i) for i in range(80)], device)
+        use_group_norm_kernel(detector.model, path.endswith("+b4"))
+        images = torch.randn(batch, SIZE, SIZE, 3,
+                             generator=torch.Generator().manual_seed(3)
+                             ).to(device)
+        log("breakdown", slice="serving", path=path, batch=batch,
+            **device_breakdown(lambda: detector(images)))
+        del detector, images
+        torch.cuda.empty_cache()
+    for batch, path in ((8, "kernels"), (8, "plain"), (32, "kernels"),
+                        (32, "kernels+b4"), (32, "plain")):
+        config = train_config(batch, fused=path != "plain")
+        model = RetinaNet.from_config(config.model, 9, 80).to(device)
+        use_group_norm_kernel(model, path.endswith("+b4"))
+        box = [create_train_state(model, config, init_params(
+            config, torch.Generator().manual_seed(0), 80))]
+        step = make_train_step(model, levels, config, with_metrics=False)
+        data = synthetic_batch(batch, SIZE, config.assign.max_boxes,
+                               device)
 
-            def call():
-                box[0] = step(box[0], *data)[0]
+        def call():
+            box[0] = step(box[0], *data)[0]
 
-            log("breakdown", slice="training", path=path, batch=batch,
-                **device_breakdown(call))
-            del model, box, step, data
-            torch.cuda.empty_cache()
+        log("breakdown", slice="training", path=path, batch=batch,
+            **device_breakdown(call))
+        del model, box, step, data
+        torch.cuda.empty_cache()
 
 
 def parent_module(name: str):
@@ -1542,19 +2081,12 @@ def within_b1_bound(label, out, ref, **fields) -> None:
         raise AssertionError(f"{label}: outside B1's bound at {fields}")
 
 
-def check_parent(device, int8_shapes):
-    """This tree's B1, B5 and B6 against the parent commit's, built from
-    PARENT_DIR.  B1 at the four stage shapes and B5 at res2 b0, batch 8:
-    within B1's bound of the parent's output (the redesigned GEMMs sum in
+def parent_b1_b5(device, gen):
+    """B1 at the four stage shapes and B5 at res2 b0, batch 8, against the
+    parent's: within B1's bound of the parent's output (GEMMs that sum in
     another order), timed in turns (parent, this tree, this tree, parent;
-    each wrapper as serving calls it), B1 by launch group.  B6 at every
-    int8 conv shape: end to end, and bitwise with the parent's kernels
-    given this tree's s_x and prepared weights (s_w, whose division this
-    tree repaired).  Also logs whether PyTorch's CUDA division by a Python
-    scalar equals the true quotient (the parent's s_x and s_w divided
-    so)."""
-    old1, old6 = parent_module("bottleneck"), parent_module("int8_conv")
-    gen = torch.Generator().manual_seed(12)
+    each wrapper as serving calls it), B1 by launch group."""
+    old1 = parent_module("bottleneck")
     turns = {"parent": 0.0, "this": 0.0}
     for name, h, w, c, f, count in STAGES:
         x, params = block_inputs(8, h, w, c, f, gen, device)
@@ -1566,9 +2098,7 @@ def check_parent(device, int8_shapes):
         calls = {"parent": lambda: old1.fused_bottleneck(x, *params),
                  "this": lambda: b1.fused_bottleneck(x, *params,
                                                      weights=wts)}
-        ms = {}
-        for who in ("parent", "this", "this", "parent"):
-            ms.setdefault(who, []).append(cuda_time_ms(calls[who], 10))
+        ms = in_turns(calls, 10)
         for who, v in ms.items():
             turns[who] += count * sum(v) / len(v)
         log("parent-b1-time", stage=name, batch=8, blocks=count,
@@ -1586,13 +2116,19 @@ def check_parent(device, int8_shapes):
     new, old = calls["this"](), calls["parent"]()
     torch.cuda.synchronize()
     within_b1_bound("parent-b5", new, old, shape=list(x.shape))
-    ms = {}
-    for who in ("parent", "this", "this", "parent"):
-        ms.setdefault(who, []).append(cuda_time_ms(calls[who], 10))
+    ms = in_turns(calls, 10)
     log("parent-b5-time", batch=8, ms_in_turns=ms,
         parent_split=block_split(calls["parent"],
                                  "b5_fused_bottleneck_proj"))
     del x, params, wts, new, old
+
+
+def parent_b6(device, gen, int8_shapes):
+    """B6 at every int8 conv shape against the parent's: end to end, and
+    bitwise with the parent's kernels given this tree's s_x and prepared
+    weights.  Also logs whether PyTorch's CUDA division by a Python scalar
+    equals the true quotient (how an earlier tree divided s_x and s_w)."""
+    old6 = parent_module("int8_conv")
     t = torch.rand(1 << 20, generator=gen).to(device) * 100
     log("parent-scalar-division",
         differs_share=(t / 127.0 != t / torch.full_like(t, 127.0))
@@ -1627,6 +2163,89 @@ def check_parent(device, int8_shapes):
                                  f"{key}")
         del x, kernel, wts, new, old, same_inputs
     log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends)
+
+
+def in_turns(calls, iters):
+    """ms per call of each of ``calls`` {"parent": fn, "this": fn}, timed
+    parent, this, this, parent."""
+    ms = {}
+    for who in ("parent", "this", "this", "parent"):
+        ms.setdefault(who, []).append(cuda_time_ms(calls[who], iters))
+    return ms
+
+
+def parent_b4(device, gen):
+    """B4 at B4_TIMED (bf16, with and without the activation) against the
+    parent's: both within B4_REL of the plain version, timed in turns."""
+    old4 = parent_module("groupnorm")
+    for name, batch, h, w, c, act in B4_TIMED:
+        x = torch.randn(batch, h, w, c, generator=gen).to(
+            torch.bfloat16).to(device)
+        gamma, beta = (p.to(device) for p in gn_affine(c, gen))
+        groups = resolve_groups(c)
+        for a in (None, act):
+            with torch.no_grad():
+                calls = {"parent": lambda: old4.fused_group_norm_act(
+                             x, gamma, beta, groups, 1e-5, a),
+                         "this": lambda: b4.fused_group_norm_act(
+                             x, gamma, beta, groups, 1e-5, a)}
+                ref = b4.fused_group_norm_act_plain(x, gamma, beta, groups,
+                                                    1e-5, a).float()
+                errs = {who: (f().float() - ref).abs() for who, f in
+                        calls.items()}
+                bound = B4_REL[torch.bfloat16] * ref.abs().clamp(min=1.0)
+                over = {who: int((e > bound).sum().item())
+                        for who, e in errs.items()}
+                ms = in_turns(calls, 20 if batch == 8 else 5)
+            log("parent-b4", at=name, shape=[batch, h, w, c], activation=a,
+                path=b4.kernel_path(batch, h * w, c, groups, x.dtype),
+                max_abs_err={k: e.max().item() for k, e in errs.items()},
+                over_bound=over, ms_in_turns=ms)
+            if any(over.values()):
+                raise AssertionError(f"B4 or the parent's is outside B4's "
+                                     f"bound at {name}, batch {batch}")
+            del errs, ref
+        del x
+    torch.cuda.empty_cache()
+
+
+def parent_b2(device, gen):
+    """B2 at the serving shapes against the parent's: equal keep masks,
+    timed in turns."""
+    old2 = parent_module("nms")
+    for shape in ((8, 1000), (128, 1000)):
+        boxes = clustered_boxes(*shape, gen).to(device)
+        calls = {"parent": lambda: old2.nms_keep_mask_batch(boxes, 0.5),
+                 "this": lambda: b2.nms_keep_mask_batch(boxes, 0.5)}
+        equal = bool(torch.equal(calls["parent"](), calls["this"]()))
+        log("parent-b2", shape=[*shape, 4], equal=equal,
+            ms_in_turns=in_turns(calls, 20))
+        if not equal:
+            raise AssertionError(f"B2 differs from the parent's at {shape}")
+
+
+# The parent comparisons, each run when its module is in PARENT_DIR.
+PARENT_CHECKS = {"bottleneck": parent_b1_b5, "groupnorm": parent_b4,
+                 "nms": parent_b2}
+
+
+def check_parent(device, int8_shapes):
+    """This tree's kernels against the parent commit's, built from the
+    sources in PARENT_DIR: B1 and B5 (``bottleneck.py``), B2 (``nms.py``),
+    B4 (``groupnorm.py``) and B6 (``int8_conv.py``), each where its module
+    is there."""
+    gen = torch.Generator().manual_seed(12)
+    ran = []
+    for name, check in PARENT_CHECKS.items():
+        if (PARENT_DIR / f"{name}.py").exists():
+            check(device, gen)
+            ran.append(name)
+    if (PARENT_DIR / "int8_conv.py").exists():
+        parent_b6(device, gen, int8_shapes)
+        ran.append("int8_conv")
+    if not ran:
+        raise AssertionError(f"no parent module in {PARENT_DIR}")
+    log("parent", compared=ran)
 
 
 def build_kernels():
@@ -1682,11 +2301,13 @@ def main(argv=()) -> int:
     if "build" in phases:
         build_kernels()
     errs, launches, timing, int8_shapes = {}, {}, {}, {}
+    if "checks" in phases or "gn" in phases:
+        gn_shapes = record_gn_shapes(device)
     if "checks" in phases:
         errs["b1"] = check_b1(device)
         errs["b2"] = float(check_b2(device))
         errs["b3"] = check_b3(device)
-        errs["b4"] = check_b4(device)
+        errs["b4"] = check_b4(device, gn_shapes)
         errs["b5"] = check_b5(device)
         errs["b7"] = check_b7(device)
     if "serving" in phases:
@@ -1698,13 +2319,18 @@ def main(argv=()) -> int:
         launches["b6"] = int8_launches["b6"]
         errs["b6"] = check_b6(device, int8_shapes)
     if "parent" in phases:
-        if not int8_shapes:
+        if not int8_shapes and (PARENT_DIR / "int8_conv.py").exists():
             int8_shapes = check_int8_serving(device)[1]
         check_parent(device, int8_shapes)
     if "proj" in phases:
         launches["b5"] = check_fused_proj(device)["b5"]
+    if "gn" in phases:
+        launches["b4"] = check_gn_model(device, gn_shapes)["b4"]
+        time_gn_model(device)
     if "entry" in phases:
-        launches.update(drive_entry_points(device))
+        entry = drive_entry_points(device)
+        launches["b7"] = entry["b7"]
+        launches.setdefault("b4", entry["b4"])
     if "timing" in phases:
         timing = time_kernels(device)
         if int8_shapes:
@@ -1713,7 +2339,8 @@ def main(argv=()) -> int:
         time_training(device)
     if "breakdown" in phases:
         breakdown(device)
-    log("done", seconds=time.monotonic() - t0, phases=list(phases))
+    log("done", seconds=time.monotonic() - t0, phases=list(phases),
+        lossy_profile_windows=profiling.lossy_windows)
     if phases != PHASES:
         return 0
 

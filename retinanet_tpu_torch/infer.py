@@ -19,6 +19,7 @@ from torch import Tensor
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.ops.anchors import Levels, build_levels
 from retinanet_tpu_torch.export import init_params, load_exported
+from retinanet_tpu_torch.models.layers import use_group_norm_kernel
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops.nms import BoxesDecoded, fused_decode_nms
 from retinanet_tpu_torch.ops.preprocess import maybe_normalize
@@ -104,17 +105,19 @@ class Detector:
 
 def benchmark(config: Config, batch_size: int = 8, steps: int = 20,
               warmup: int = 3, num_classes: int = 80,
-              device: Union[str, torch.device] = "cuda"
-              ) -> Dict[str, float]:
+              device: Union[str, torch.device] = "cuda",
+              group_norm_kernel: bool = False) -> Dict[str, float]:
     """images/sec + p50/p99 latency of the full inference path on random
-    images and seeded random weights.  Needs a CUDA device: a time taken
-    on the CPU is not the card's."""
+    images and seeded random weights; ``group_norm_kernel`` routes every
+    GroupNorm through kernel B4 (``use_group_norm_kernel``).  Needs a CUDA
+    device: a time taken on the CPU is not the card's."""
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError(f"benchmark times the card; got device {device}")
     gen = torch.Generator().manual_seed(0)
     detector = Detector(config, init_params(config, gen, num_classes),
                         [str(i) for i in range(num_classes)], device)
+    use_group_norm_kernel(detector.model, group_norm_kernel)
     size = config.data.image_size
     images = torch.randn(batch_size, size, size, 3, generator=gen).to(device)
 

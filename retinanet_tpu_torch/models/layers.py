@@ -116,6 +116,16 @@ class GroupNorm(nn.Module):
                           self.activation)
 
 
+def use_group_norm_kernel(model: nn.Module, on: bool = True) -> int:
+    """Set ``use_kernel`` on every ``GroupNorm`` of ``model`` (the JAX
+    module's ``use_pallas``, for a whole model; no config sets it).
+    Returns the number of modules set."""
+    mods = [m for m in model.modules() if isinstance(m, GroupNorm)]
+    for m in mods:
+        m.use_kernel = on
+    return len(mods)
+
+
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """TF/XLA "SAME" (before, after) padding of one spatial dim; the extra
     element goes after, so stride 2 is asymmetric."""

@@ -11,12 +11,16 @@ backward B3 (``ops/bottleneck_bwd.py``) when training.  The JAX package
 keeps res5 (width 20 at 640 px) on autodiff because of a Mosaic tiling
 limit (``w % 8``); the CUDA kernel has none, so all 12 identity blocks take
 B3.  With ``fused_proj`` the stride-1 projection block (res2 b0) serves
-through kernel B5.  A fused block keeps its kernels' bf16 layouts per
-parameter version (``ops/cuda.py:ParameterCache`` of
-``ops/bottleneck.py:prepare_weights`` or ``prepare_proj_weights``): built
-once for serving, and again after every optimizer step in training.  ``quantize`` runs every block conv through the int8
-convolution (kernel B6) and keeps every block off B1, B3 and B5; the stem
-stays float.  Everything else runs the plain layers.
+through kernel B5.  ``remat`` (``ModelConfig.remat``) runs every training
+block that takes no kernel under ``torch.utils.checkpoint`` (the JAX
+package's ``remat_call``): its backward recomputes the block instead of
+keeping its activations.  B3's blocks already keep only their primals.
+A fused block keeps its kernels' bf16 layouts per parameter version
+(``ops/cuda.py:ParameterCache`` of ``ops/bottleneck.py:prepare_weights`` or
+``prepare_proj_weights``): built once for serving, and again after every
+optimizer step in training.  ``quantize`` runs every block conv through
+the int8 convolution (kernel B6) and keeps every block off B1, B3 and B5;
+the stem stays float.  Everything else runs the plain layers.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+from torch.utils.checkpoint import checkpoint
 
 from retinanet_tpu_torch.models.layers import ConvGN, max_pool_same
 from retinanet_tpu_torch.ops.bottleneck import (fused_bottleneck,
@@ -68,21 +73,27 @@ class ResNetBottleneck(nn.Module):
             self.add_module(f"ConvGN_{i}", conv)
         self._fused_weights: Optional[ParameterCache] = None
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
-        convs = list(self.children())
-        conv1, conv2, conv3 = convs[-3:]
+    def _kernel(self, x: Tensor, training: bool):
+        """The fused block function this call takes (B1, B3 or B5), or
+        None for the plain layers."""
         bf16 = x.dtype == torch.bfloat16 and not self.quantize
         if self.project:  # B5: the stride-1 projection block, serving only
             fused = (bf16 and self.project is True and self.fused_proj
                      and not training)
-            block = fused_bottleneck_proj
-            order = convs[1:] + convs[:1]  # the projection's params last
-        else:
-            fused = (bf16 and x.shape[1] == self.filters * 4
-                     and (self.fused_train if training else self.fused))
-            block = fused_bottleneck_train if training else fused_bottleneck
-            order = convs
-        if fused:
+            return fused_bottleneck_proj if fused else None
+        fused = (bf16 and x.shape[1] == self.filters * 4
+                 and (self.fused_train if training else self.fused))
+        if not fused:
+            return None
+        return fused_bottleneck_train if training else fused_bottleneck
+
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+        convs = list(self.children())
+        conv1, conv2, conv3 = convs[-3:]
+        block = self._kernel(x, training)
+        if block is not None:
+            # B5 takes the projection's parameters last.
+            order = convs[1:] + convs[:1] if self.project else convs
             params = []
             for conv in order:
                 params += [conv.Conv_0.kernel, conv.GroupNorm_0.gamma,
@@ -100,15 +111,18 @@ class ResNetBottleneck(nn.Module):
 class ResNet50(nn.Module):
     """Dense ResNet-50 returning {'C1'..'C5'}: 7×7/2 stem ConvGN + relu
     (never quantized), 3×3/2 SAME max pool, stages (64,3) (128,4) (256,6)
-    (512,3)."""
+    (512,3).  ``remat``: training blocks off the kernels run under
+    ``checkpoint`` (parameter names unchanged)."""
 
     STAGES = ((64, 3, False), (128, 4, True), (256, 6, True), (512, 3, True))
 
     def __init__(self, fused_blocks: bool = False, fused_res2: bool = False,
                  fused_res2_strips: int = 20, fused_res3_strips: int = 0,
                  fused_res4_strips: int = 0, fused_train: bool = False,
-                 fused_proj: bool = False, quantize: bool = False):
+                 fused_proj: bool = False, quantize: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if fused_blocks and (fused_res2_strips or fused_res3_strips
                              or fused_res4_strips):
             logger.info("fused_res{2,3,4}_strips size TPU VMEM strips; the "
@@ -135,7 +149,12 @@ class ResNet50(nn.Module):
         idx = 0
         for stage_idx, (_, depth, _) in enumerate(self.STAGES):
             for _ in range(depth):
-                x = getattr(self, f"ResNetBottleneck_{idx}")(x, training)
+                block = getattr(self, f"ResNetBottleneck_{idx}")
+                if (self.remat and training
+                        and block._kernel(x, training) is None):
+                    x = checkpoint(block, x, training, use_reentrant=False)
+                else:
+                    x = block(x, training)
                 idx += 1
             taps[f"C{stage_idx + 2}"] = x
         return taps

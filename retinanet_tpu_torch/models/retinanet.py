@@ -31,14 +31,15 @@ def build_backbone(name: str, quantize: bool = False,
                    fused_blocks: bool = False, fused_res2: bool = False,
                    fused_res2_strips: int = 20, fused_res3_strips: int = 0,
                    fused_res4_strips: int = 0, fused_proj: bool = False,
-                   fused_train: bool = False) -> nn.Module:
+                   fused_train: bool = False, remat: bool = False
+                   ) -> nn.Module:
     if name == "resnet_50_dense":
         return ResNet50(fused_blocks=fused_blocks, fused_res2=fused_res2,
                         fused_res2_strips=fused_res2_strips,
                         fused_res3_strips=fused_res3_strips,
                         fused_res4_strips=fused_res4_strips,
                         fused_train=fused_train, fused_proj=fused_proj,
-                        quantize=quantize)
+                        quantize=quantize, remat=remat)
     if name in BACKBONES:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ROADMAP A8, other "
@@ -57,7 +58,7 @@ class RetinaNet(nn.Module):
                  fused_res2: bool = False, fused_res2_strips: int = 20,
                  fused_res3_strips: int = 0, fused_res4_strips: int = 0,
                  fused_proj: bool = False, fused_train: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 remat: bool = False, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.backbone = backbone
         self.num_classes = num_classes
@@ -67,7 +68,7 @@ class RetinaNet(nn.Module):
             fused_res2=fused_res2, fused_res2_strips=fused_res2_strips,
             fused_res3_strips=fused_res3_strips,
             fused_res4_strips=fused_res4_strips, fused_proj=fused_proj,
-            fused_train=fused_train)
+            fused_train=fused_train, remat=remat)
         self.fpn = FPN({"C3": 512, "C4": 1024, "C5": 2048}, fpn_channels,
                        activation, quantize)
         # The heads stay float under int8 serving (retinanet.py:150-165).
@@ -97,6 +98,7 @@ class RetinaNet(nn.Module):
             fused_res4_strips=cfg.fused_res4_strips,
             fused_proj=cfg.fused_proj,
             fused_train=cfg.fused_train,
+            remat=cfg.remat,
             dtype=getattr(torch, cfg.compute_dtype))
 
     def forward(self, images: Tensor, training: bool = False

@@ -22,20 +22,22 @@ The kernels read bf16 layouts of the OIHW kernels (``prepare_weights``,
 parameter version (``ops/cuda.py:ParameterCache``) and passes them as
 ``weights``; without it a call lays them out itself.  Each GEMM's last CTA
 per image finalizes its GroupNorm through a ticket word per image, kept
-zero between launches in one buffer per device and stream (``tickets``).
+zero between launches in one buffer per device and stream
+(``ops/cuda.py:tickets``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
 from retinanet_tpu_torch.models.layers import group_norm, resolve_groups
-from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
+from retinanet_tpu_torch.ops.cuda import (KernelLibrary, check_cuda,
+                                          stream_ptr, tickets)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("bottleneck.cu", {
@@ -49,7 +51,6 @@ MAX_F = 512
 # A GEMM's output rows per CTA: its partial statistics are [B, MT, 2, N]
 # with MT = ceil(H*W / TILE_ROWS).
 TILE_ROWS = 128
-_TICKETS: Dict[Tuple[int, int], Tensor] = {}
 
 # (y1, y2, y3, ((mean1, inv1), (mean2, inv2), (mean3, inv3))): a block's
 # conv outputs [B, HW, ·] and each GN's statistics [B, ·].
@@ -103,18 +104,6 @@ def prepare_proj_weights(k1: Tensor, k2: Tensor, k3: Tensor,
 
 
 prepare_proj_weights.builds = 0
-
-
-def tickets(device: torch.device, count: int) -> Tensor:
-    """At least ``count`` zero int32 words on ``device`` for the GEMMs'
-    per-image finalize tickets: one buffer per device and stream, which
-    every launch leaves zero."""
-    key = (device.index, stream_ptr(device))
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < count:
-        buf = _TICKETS[key] = torch.zeros(max(count, 64), dtype=torch.int32,
-                                          device=device)
-    return buf
 
 
 def forward_of(y1: Tensor, y2: Tensor, y3: Tensor, mv: Tensor

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,6 +125,21 @@ class KernelLibrary:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def tickets(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` zero int32 words on ``device`` for the kernels'
+    per-image "last CTA finalizes" tickets (B1, B3, B4, B5): one buffer per
+    device and stream, which every launch leaves zero."""
+    key = (device.index, stream_ptr(device))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = _TICKETS[key] = torch.zeros(max(count, 64), dtype=torch.int32,
+                                          device=device)
+    return buf
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

@@ -15,6 +15,13 @@ CUDA kernel (``csrc/groupnorm.cu``) for a CUDA tensor and runs
 ``fused_group_norm_act_plain`` for a CPU tensor; its backward is the plain
 fp32 GroupNorm gradient of the TPU op's ``_bwd`` (the JAX package has no
 backward kernel).  The module entry point is ``GroupNorm(use_kernel=True)``.
+
+On the card the kernel takes one of two paths, a fixed rule on the shape
+(``kernel_path``): "split" (a statistics launch whose last CTA per image
+finalizes, then an apply launch) for any shape, or "cluster" (one launch:
+a cluster of ``CLUSTER_SIZE`` CTAs per image holds the image in shared
+memory, so x is read once) for small images at small batches, where it
+measured faster.
 """
 
 from __future__ import annotations
@@ -26,18 +33,30 @@ import torch
 from torch import Tensor
 
 from retinanet_tpu_torch.models.layers import gn_scale_shift
-from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda, stream_ptr
+from retinanet_tpu_torch.ops.cuda import (KernelLibrary, check_cuda,
+                                          stream_ptr, tickets)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = KernelLibrary("groupnorm.cu", {
-    "fused_group_norm_act_fwd": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
+    "gn_split_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gn_cluster_fwd": [_P] * 4 + [_I] * 7 + [_F, _P],
 })
 
 # Activation codes the CUDA side reads.
 ACTIVATIONS = {None: 0, "elu": 1, "relu": 2, "relu6": 3, "swish": 4,
                "gelu": 5}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-STATS_BLOCK_BYTES = 32 * 1024  # bytes of x each CTA of the stats pass sums
+# Split path: the statistics pass aims at STATS_CTAS CTAs over the batch
+# (four per SM of an H100), at least MIN_STATS_ROWS rows each; each apply
+# CTA covers APPLY_BYTES of x.
+STATS_CTAS, MIN_STATS_ROWS, APPLY_BYTES = 528, 16, 32 * 1024
+# Cluster path: CTAs per image (16 is a non-portable cluster size), the
+# kernel's threads, and the shared memory one CTA may hold; taken by
+# default only where a CTA needs at most CLUSTER_FAST_SMEM and the batch's
+# CTAs fit CLUSTER_WAVE (three per SM of an H100's 132).
+CLUSTER_SIZE, CLUSTER_THREADS, CLUSTER_SMEM = 16, 256, 227 * 1024
+CLUSTER_FAST_SMEM, CLUSTER_WAVE = 72 * 1024, 3 * 132
+PATHS = ("split", "cluster")
 
 
 def act_fn(activation: Optional[str]) -> Callable[[Tensor], Tensor]:
@@ -72,8 +91,33 @@ def fused_group_norm_act_plain(x: Tensor, gamma: Tensor, beta: Tensor,
     return act_fn(activation)(y).to(x.dtype)
 
 
-def _forward_cuda(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
-                  eps: float, activation: Optional[str]) -> Tensor:
+def cluster_smem(hw: int, c: int, groups: int, element_size: int) -> int:
+    """Shared memory of one CTA of the cluster path (``gn_cluster``): its
+    mbarriers and sums, rounded to 128 bytes, then its rows of the image."""
+    vec = 16 // element_size
+    floats = max(2 * CLUSTER_THREADS * vec, 4 * c + 2 * groups) + 2 * c
+    head = -(-(128 + 4 * floats) // 128) * 128
+    return head + -(-hw // CLUSTER_SIZE) * c * element_size
+
+
+def kernel_path(batch: int, hw: int, c: int, groups: int,
+                dtype: torch.dtype) -> str:
+    """The path B4 takes for ``batch`` images of ``hw`` pixels by ``c``
+    channels: "cluster" where a CTA's share of an image fits
+    CLUSTER_FAST_SMEM (three CTAs per SM) and the batch's clusters fit one
+    wave (CLUSTER_WAVE CTAs), else "split".  Measured on the H100
+    (``chip_smoke.py:sweep_b4_paths``): the cluster path wins only there,
+    at P4 (40x40x256 bf16) at batch 8; with a fuller CTA or more waves the
+    split path streams faster."""
+    smem = cluster_smem(hw, c, groups, dtype.itemsize)
+    fits = smem <= CLUSTER_FAST_SMEM and batch * CLUSTER_SIZE <= CLUSTER_WAVE
+    return "cluster" if fits else "split"
+
+
+def forward_cuda(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
+                 eps: float, activation: Optional[str],
+                 path: Optional[str] = None) -> Tensor:
+    """B4 on the card along ``path`` (default ``kernel_path``'s)."""
     b, h, w, c = x.shape
     if x.dtype not in _DTYPES:
         raise ValueError(f"B4 takes bf16 or fp32, got {x.dtype}")
@@ -88,16 +132,35 @@ def _forward_cuda(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
         raise ValueError(f"γ and β must lie on {x.device}")
     check_cuda(x, "x", x.dtype)
     hw = h * w
-    rows = max(64, STATS_BLOCK_BYTES // (c * x.element_size()))
-    nrb = -(-hw // rows)
-    part = torch.empty(b, nrb, 2, c, dtype=torch.float32, device=x.device)
-    ss = torch.empty(2, b, c, dtype=torch.float32, device=x.device)
+    if hw * c >= 1 << 31:
+        raise ValueError(f"B4 indexes an image with 32-bit offsets; got "
+                         f"{hw}x{c} elements")
+    path = path or kernel_path(b, hw, c, groups, x.dtype)
+    if path not in PATHS:
+        raise ValueError(f"unknown B4 path {path!r}; choose from {PATHS}")
     out = torch.empty_like(x)
     g32, b32 = gamma.float().contiguous(), beta.float().contiguous()
-    LIB.call("fused_group_norm_act_fwd", x.data_ptr(), g32.data_ptr(),
-             b32.data_ptr(), part.data_ptr(), ss.data_ptr(), out.data_ptr(),
-             b, hw, c, groups, _DTYPES[x.dtype], ACTIVATIONS[activation],
-             rows, float(eps), stream_ptr(x.device))
+    dev, dt, act = x.device, _DTYPES[x.dtype], ACTIVATIONS[activation]
+    stream = stream_ptr(dev)
+    if path == "cluster":
+        smem = cluster_smem(hw, c, groups, x.element_size())
+        if smem > CLUSTER_SMEM:
+            raise ValueError(f"a {h}x{w}x{c} image needs {smem} bytes of "
+                             f"shared memory per CTA on the cluster path")
+        LIB.call("gn_cluster_fwd", x.data_ptr(), g32.data_ptr(),
+                 b32.data_ptr(), out.data_ptr(), b, hw, c, groups, dt, act,
+                 CLUSTER_SIZE, float(eps), stream)
+    else:
+        nrb = min(-(-STATS_CTAS // b), -(-hw // MIN_STATS_ROWS))
+        rows = -(-hw // nrb)
+        nrb = -(-hw // rows)
+        apply_rows = max(1, APPLY_BYTES // (c * x.element_size()))
+        part = torch.empty(b, nrb, 2, c, dtype=torch.float32, device=dev)
+        ss = torch.empty(2, b, c, dtype=torch.float32, device=dev)
+        LIB.call("gn_split_fwd", x.data_ptr(), g32.data_ptr(),
+                 b32.data_ptr(), part.data_ptr(), tickets(dev, b).data_ptr(),
+                 ss.data_ptr(), out.data_ptr(), b, hw, c, groups, dt, act,
+                 rows, apply_rows, float(eps), stream)
     fused_group_norm_act.launches += 1
     return out
 
@@ -140,18 +203,24 @@ def group_norm_act_grad(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
             dbeta.to(beta.dtype))
 
 
+def _forward(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
+             eps: float, activation: Optional[str]) -> Tensor:
+    """B4 for a CUDA tensor, its plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return fused_group_norm_act_plain(x, gamma, beta, groups, eps,
+                                          activation)
+    return forward_cuda(x, gamma, beta, groups, eps, activation)
+
+
 class FusedGroupNormAct(torch.autograd.Function):
-    """Forward: B4 (CUDA) or its plain version (CPU); backward: the plain
-    fp32 gradient, recomputed from the saved primals."""
+    """Forward: ``_forward``; backward: the plain fp32 gradient,
+    recomputed from the saved primals."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups, eps, activation):
         ctx.save_for_backward(x, gamma, beta)
         ctx.config = (groups, eps, activation)
-        if not x.is_cuda:
-            return fused_group_norm_act_plain(x, gamma, beta, groups, eps,
-                                              activation)
-        return _forward_cuda(x, gamma, beta, groups, eps, activation)
+        return _forward(x, gamma, beta, groups, eps, activation)
 
     @staticmethod
     def backward(ctx, g):
@@ -168,7 +237,13 @@ def fused_group_norm_act(x: Tensor, gamma: Tensor, beta: Tensor, groups: int,
     ``groups`` groups; γ/β [C].  Returns x's dtype and shape."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
-    return FusedGroupNormAct.apply(x, gamma, beta, groups, eps, activation)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return FusedGroupNormAct.apply(x, gamma, beta, groups, eps,
+                                       activation)
+    # Nothing to differentiate (serving): the forward without the autograd
+    # Function's bookkeeping, a host cost of each call.
+    return _forward(x, gamma, beta, groups, eps, activation)
 
 
 fused_group_norm_act.launches = 0

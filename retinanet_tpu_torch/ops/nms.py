@@ -101,7 +101,8 @@ def _greedy_keep_mask(boxes: Tensor, iou_threshold: float) -> Tensor:
 def nms_keep_mask_batch(boxes: Tensor, iou_threshold: float = 0.5) -> Tensor:
     """Keep mask [B,N] bool of score-sorted corner boxes [B,N,4] float32.
 
-    CUDA: the bitmask + scan kernel (N ≤ 2048).  CPU: ``_greedy_keep_mask``.
+    CUDA: kernel B2, the upper-triangle bitmask and a block-wise scan
+    (two launches, N ≤ 2048).  CPU: ``_greedy_keep_mask``.
     """
     if not boxes.is_cuda:
         return _greedy_keep_mask(boxes, iou_threshold)
@@ -112,9 +113,10 @@ def nms_keep_mask_batch(boxes: Tensor, iou_threshold: float = 0.5) -> Tensor:
     if n > 2048:
         raise ValueError(f"the CUDA NMS kernel takes N <= 2048, got {n}")
     keep = torch.empty(bsz, n, dtype=torch.bool, device=boxes.device)
-    if n == 0:
+    if n == 0 or bsz == 0:
         return keep
-    mask = torch.empty(bsz, n, -(-n // 64), dtype=torch.int64,
+    nw = -(-n // 64)  # 64-box blocks; the mask holds their upper triangle
+    mask = torch.empty(bsz, nw * (nw + 1) // 2, 64, dtype=torch.int64,
                        device=boxes.device)
     LIB.call("nms_keep_mask_fwd", boxes.data_ptr(), bsz, n,
              float(iou_threshold), mask.data_ptr(), keep.data_ptr(),

@@ -29,6 +29,7 @@ import torch
 from torch import Tensor
 
 from retinanet_tpu_torch.config import Config, TrainConfig
+from retinanet_tpu_torch.models.layers import use_group_norm_kernel
 from retinanet_tpu_torch.models.retinanet import RetinaNet, l2_regularization
 from retinanet_tpu_torch.ops import assign
 from retinanet_tpu_torch.ops import boxes as box_ops
@@ -356,12 +357,13 @@ def synthetic_batch(batch_size: int, image_size: int, max_boxes: int,
 
 def benchmark_train(config: Config, batch_size: int = 32, steps: int = 10,
                     warmup: int = 2, num_classes: int = 80,
-                    device: Union[str, torch.device] = "cuda"
-                    ) -> Dict[str, float]:
+                    device: Union[str, torch.device] = "cuda",
+                    group_norm_kernel: bool = False) -> Dict[str, float]:
     """Train-step throughput (assignment + forward + backward + optimizer)
     on a fixed synthetic batch and seeded weights, and the peak device
-    memory of the steps.  Needs a CUDA device: a time taken on the CPU is
-    not the card's."""
+    memory of the steps; ``group_norm_kernel`` routes every GroupNorm's
+    forward through kernel B4 (``use_group_norm_kernel``).  Needs a CUDA
+    device: a time taken on the CPU is not the card's."""
     from retinanet_tpu_torch.export import init_params
 
     device = torch.device(device)
@@ -371,6 +373,7 @@ def benchmark_train(config: Config, batch_size: int = 32, steps: int = 10,
     levels = build_levels(config.anchors)
     model = RetinaNet.from_config(config.model, levels.num_anchors,
                                   num_classes=num_classes).to(device)
+    use_group_norm_kernel(model, group_norm_kernel)
     state = create_train_state(
         model, config,
         init_params(config, torch.Generator().manual_seed(0), num_classes))

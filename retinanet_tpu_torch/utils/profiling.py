@@ -18,7 +18,7 @@ from torch.profiler import DeviceType, ProfilerActivity, profile
 GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("B3 bottleneck_bwd.cu", ("b3_fused_bottleneck_bwd",)),
     ("B1 bottleneck.cu", ("b1_fused_bottleneck",)),
-    ("B2 nms.cu", ("nms_mask", "nms_scan")),
+    ("B2 nms.cu", ("b2_nms",)),
     ("B4 groupnorm.cu", ("b4_group_norm",)),
     ("B5 bottleneck_proj.cu", ("b5_fused_bottleneck_proj",)),
     ("B6 int8_conv.cu", ("b6_int8_conv",)),
@@ -36,10 +36,16 @@ GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 
 TOP_KERNELS = 8  # kernels listed by name, the longest first
 CALLS = 3  # profiled calls, after one warm call
-# The kernel of ``torch.cuda._sleep``, which ``kernel_launches`` launches
-# first in its window (the profile may miss a window's first kernel) and
-# does not count.
-MARKER = "spin_kernel"
+# The kernel of ``torch.cuda._sleep``, which ``kernel_sequence`` launches
+# MARKERS times before and after the profiled calls, a host pause of
+# SETTLE_S between each group of markers and the calls.  A profile may miss
+# the kernels launched first after it starts (more often after many earlier
+# profiles in one process): a window counts only where it kept every closing
+# marker and at least one opening one, and is taken again up to ATTEMPTS
+# times.
+MARKER, MARKERS, SETTLE_S, ATTEMPTS = "spin_kernel", 16, 0.05, 3
+# Windows that lost kernels and were taken again, over the process.
+lossy_windows = 0
 
 
 def group_of(name: str) -> str:
@@ -60,24 +66,62 @@ def _union_us(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
+def _markers() -> None:
+    for _ in range(MARKERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _intact(events) -> bool:
+    """Whether a window's kernels (sorted by start) hold at least one
+    opening marker and all MARKERS closing ones: the opening and closing
+    groups are split by the one gap between markers of at least SETTLE_S."""
+    starts = [e.time_range.start for e in events if MARKER in e.name]
+    gaps = [b - a for a, b in zip(starts, starts[1:])]
+    if not gaps:
+        return False
+    split = max(range(len(gaps)), key=gaps.__getitem__)
+    return (gaps[split] >= SETTLE_S * 1e6
+            and len(starts) - split - 1 == MARKERS)
+
+
+def kernel_sequence(call: Callable[[], None], calls: int = 1
+                    ) -> List[Tuple[str, float]]:
+    """(kernel name, device ms) of every kernel that ``calls``
+    synchronised calls of ``call`` launch, after a warm one, in the order
+    they start, from a window that lost none of them (``_intact``; raises
+    after ATTEMPTS lossy windows)."""
+    global lossy_windows
+    call()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _markers()
+            time.sleep(SETTLE_S)
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            time.sleep(SETTLE_S)
+            _markers()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if _intact(events):
+            return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                    for e in events if MARKER not in e.name]
+        lossy_windows += 1
+    raise RuntimeError(f"{ATTEMPTS} profile windows in a row lost kernels")
+
+
 def kernel_launches(call: Callable[[], None], calls: int = CALLS
                     ) -> Dict[str, Tuple[float, float]]:
     """{kernel name: (launches, device ms)} per call, over ``calls``
     synchronised calls of ``call`` after a warm one."""
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
     by_name: Dict[str, Tuple[float, float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and MARKER not in e.name:
-            n, ms = by_name.get(e.name, (0.0, 0.0))
-            by_name[e.name] = (n + 1.0 / calls, ms + (
-                e.time_range.end - e.time_range.start) / 1e3 / calls)
+    for name, ms in kernel_sequence(call, calls):
+        n, total = by_name.get(name, (0.0, 0.0))
+        by_name[name] = (n + 1.0 / calls, total + ms / calls)
     return by_name
 
 

@@ -116,3 +116,53 @@ def test_module_takes_group_norm_off_the_card():
                                want.permute(0, 2, 3, 1).float().numpy(),
                                atol=2e-2, rtol=2e-2)
     assert fused_group_norm_act.launches == 0
+
+
+def test_model_wide_switch_changes_nothing_off_the_card():
+    """``use_group_norm_kernel`` sets ``use_kernel`` on every GroupNorm of
+    a model (the stem, 4 per projection block, 3 per identity block, the
+    FPN's and the 8 head GNs) and back; on CPU tensors the switched model
+    gives the same heads bitwise (every GroupNorm still takes
+    ``group_norm``) and launches nothing."""
+    from retinanet_tpu_torch.config import Config, ModelConfig
+    from retinanet_tpu_torch.export import init_params
+    from retinanet_tpu_torch.models.layers import use_group_norm_kernel
+    from retinanet_tpu_torch.models.retinanet import RetinaNet
+
+    config = Config(model=ModelConfig(backbone="resnet_50_dense",
+                                      num_classes=4, compute_dtype="float32"))
+    model = RetinaNet.from_config(config.model, 9, 4).eval()
+    model.load_state_dict(init_params(config, torch.Generator().manual_seed(0),
+                                      4))
+    mods = [m for m in model.modules() if isinstance(m, GroupNorm)]
+    images = torch.from_numpy(
+        np.random.RandomState(4).randn(1, 64, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        want = model(images)
+        assert use_group_norm_kernel(model) == len(mods) > 60
+        assert all(m.use_kernel for m in mods)
+        got = model(images)
+    assert use_group_norm_kernel(model, False) == len(mods)
+    assert not any(m.use_kernel for m in mods)
+    for head in want:
+        for level in want[head]:
+            assert torch.equal(got[head][level], want[head][level])
+    assert fused_group_norm_act.launches == 0
+
+
+def test_kernel_path_rule():
+    """B4's fixed path rule on the shape (``kernel_path``): the cluster path
+    only where a CTA's slice fits three to an SM and the batch fills at
+    most one wave of clusters, as measured on the H100: P4 (40x40x256
+    bf16) at batch 8; the split path at batch 128, for P3, the stem, and
+    fp32 P4 (twice the bytes)."""
+    from retinanet_tpu_torch.ops.groupnorm import (CLUSTER_FAST_SMEM,
+                                                   cluster_smem, kernel_path)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert cluster_smem(40 * 40, 256, 32, 2) <= CLUSTER_FAST_SMEM
+    assert kernel_path(8, 40 * 40, 256, 32, bf16) == "cluster"
+    assert kernel_path(128, 40 * 40, 256, 32, bf16) == "split"
+    assert kernel_path(8, 80 * 80, 256, 32, bf16) == "split"
+    assert kernel_path(8, 320 * 320, 64, 32, bf16) == "split"
+    assert kernel_path(8, 40 * 40, 256, 32, f32) == "split"

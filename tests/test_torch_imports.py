@@ -134,4 +134,4 @@ def test_kernel_argtypes_match_the_c_signatures():
             for p, t in zip(params, argtypes):
                 assert ("*" in p) == (t is ctypes.c_void_p), (name, p, t)
             checked += 1
-    assert checked >= 7
+    assert checked >= 8

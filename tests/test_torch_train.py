@@ -1,8 +1,8 @@
 """The port's training step (``retinanet_tpu_torch.train``) against JAX
 ``make_train_step`` on the CPU: one fp32 momentum-SGD step of the flagship
 at 64 px, batch 2, 4 classes, from the same numpy-seeded parameters and
-batch (one JAX trace for the file); gradient accumulation; and the
-optimizers and schedules against optax on a toy parameter tree."""
+batch (one JAX trace for the file); gradient accumulation; per-block remat;
+and the optimizers and schedules against optax on a toy parameter tree."""
 
 import dataclasses
 
@@ -37,10 +37,10 @@ torch.set_num_threads(2)
 SIZE, BATCH, CLASSES = 64, 2, 4
 
 
-def _port_config(**train) -> tcfg.Config:
+def _port_config(remat=False, **train) -> tcfg.Config:
     cfg = tcfg.Config(model=tcfg.ModelConfig(
         backbone="resnet_50_dense", num_classes=CLASSES,
-        compute_dtype="float32"))
+        compute_dtype="float32", remat=remat))
     return cfg.replace(
         data=dataclasses.replace(cfg.data, image_size=SIZE,
                                  batch_size=BATCH),
@@ -85,8 +85,8 @@ def jax_run():
         new_flat, reg
 
 
-def _port_step(flat, batch, with_metrics=True, **train):
-    cfg = _port_config(**train)
+def _port_step(flat, batch, with_metrics=True, remat=False, **train):
+    cfg = _port_config(remat, **train)
     model = RetinaNet.from_config(cfg.model, 9, CLASSES)
     state = create_train_state(model, cfg, params_from_flax(flat))
     step = make_train_step(model, build_levels(), cfg, with_metrics)
@@ -177,6 +177,40 @@ def test_grad_accum_duplicated_batch_matches_plain(jax_run, port_run):
     with pytest.raises(ValueError, match="grad_accum"):
         make_train_step(model, build_levels(), cfg)(
             s2, *(torch.from_numpy(a[:3]) for a in dup))
+
+
+def test_remat_matches_no_remat(jax_run, port_run, monkeypatch):
+    """``ModelConfig.remat`` reaches the backbone through ``from_config``,
+    runs each of the 16 blocks under ``checkpoint`` when training, and
+    changes no number: the losses, every gradient (the momentum trace
+    after one step from zero) and every updated parameter equal those of
+    ``remat=False`` to ``tests/test_train.py::test_remat_matches_no_remat``'s
+    bounds (loss 1e-6 relative, parameters 1e-6 absolute)."""
+    from retinanet_tpu_torch.models import resnet
+
+    flat, batch, _, _, _ = jax_run
+    s0, m0 = port_run
+    calls, real = [], resnet.checkpoint
+
+    def counted(fn, *args, **kwargs):
+        calls.append(type(fn).__name__)
+        return real(fn, *args, **kwargs)
+
+    monkeypatch.setattr(resnet, "checkpoint", counted)
+    assert RetinaNet.from_config(_port_config(remat=True).model, 9,
+                                 CLASSES).backbone_net.remat
+    s1, m1 = _port_step(flat, batch, remat=True)
+    assert calls == ["ResNetBottleneck"] * 16
+    for key in ("total_loss", "class_loss", "regr_loss", "grad_norm"):
+        np.testing.assert_allclose(m1[key], m0[key], rtol=1e-6, err_msg=key)
+    assert set(s1.params) == set(s0.params)
+    for name, g0, g1 in zip(s0.params, s0.opt_state["trace"],
+                            s1.opt_state["trace"]):
+        np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(s1.params[name].detach().numpy(),
+                                   s0.params[name].detach().numpy(),
+                                   atol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("optimizer,clip", [
