@@ -15,7 +15,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    other kernel with the weight layouts made beforehand);
 4. B2 check: NMS keep-mask kernel vs the plain greedy mask on clustered,
    class-offset boxes with parked invalids (``B2_CASES``: the b8 and b128
-   serving shapes, N = 2048, 63-65 and 1 boxes, exact IoU ties): exactly
+   serving shapes, N = 2048, 4125 (the reference decode path at 640 px),
+   5000, 8192 and 16384, 63-65 and 1 boxes, exact IoU ties): exactly
    equal and repeatable;
 5. B3 check: fused bottleneck backward kernel vs its plain version at the
    four stage shapes (batch 2 and 8, randomized γ/β, random bf16 dout):
@@ -29,7 +30,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 6. serving path: resnet_50_dense RetinaNet at 640 px, 80 classes, bf16,
    seeded random weights, through ``Detector`` at batch 8, at the default
    NMSConfig and at score_threshold 0.005; launch counts, head outputs vs
-   the unfused plain path, B2 on the model's own candidates;
+   the unfused plain path, B2 on the model's own candidates; then the
+   decode phase: the reference path (``decode_levels`` + ``nms_padded``)
+   on the serving model's own heads at batch 8 against
+   ``fused_decode_nms`` at the default NMSConfig and at score_threshold
+   0.005, and with every candidate (``pre_nms_top_k=None``, [8,4125,4])
+   through one counted B2 launch whose mask equals the plain mask; both
+   paths timed at batch 8 and 128;
 7. training path: the same flagship with ``fused_train`` through
    ``make_train_step`` at batch 8 on a fixed batch; launch counts per
    step (12 B1 + 12 B3), one step vs the plain path from the same
@@ -42,8 +49,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    hooks on the kernel, int8 and training paths) and at ``B4_EXTRA``,
    bf16 and fp32, with its kernels per call (2 split, 1 cluster), and its
    backward vs autograd of the plain forward; the projection block at
-   res2 b0 (batch 2 and 8) to B1's bound; the stem epilogue bitwise; each
-   bitwise repeatable;
+   res2 b0 (batch 2 and 8) to B1's bound; the stem epilogue bitwise at
+   ``B7_CASES`` (batch 2, 8 and 128 at the stem's shape, odd sides whose
+   last 4-row band is 1, 2 or 3 rows, C = 256 and 2048); each bitwise
+   repeatable;
 9. int8 serving: the flagship with ``quantize="int8"`` (and the fused
    flags, which the int8 gate ignores) through ``Detector`` at batch 8:
    59 B6 launches and no B1/B5; every weight scale s_w the correctly
@@ -80,20 +89,27 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    at batch 8 and 128 by kernel, with the floor of its dependency chain;
    B4 on each path at ``B4_SWEEP`` (the measurements behind its path
    rule) and at ``B4_TIMED``, with and without the activation, beside
-   ``F.group_norm``;
+   ``F.group_norm``; B7 at batch 8 and 128 per call and in device time,
+   beside ``F.max_pool2d`` alone on the same y as a yardstick, and ``fused_stem`` by part (conv,
+   statistics, B7) beside the model's stem layers, eager and with B4;
+   then ``[mfu]`` lines: images/s × ``forward_gflops_per_image`` over the
+   bf16 peak for each batch-128 serving path timed;
 13. breakdown: ``torch.profiler`` device time by kernel group, idle share
    and kernels per call: serving at batch 8 and 128 (kernel, int8 and
    plain paths; at 128 with B4 in the model too) and training at batch 8
    and 32 (at 32 with B4 too) (``utils/profiling.py``).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
-entry,serving,training,timing,breakdown``) and prints no result lines:
-for a first call after a kernel change.  ``--phases parent`` (not in the
-default run) compares kernels with a parent commit's, each whose module
-is in ``parent_kernels/`` (git-ignored): B1 and B5 (``bottleneck.py``,
-within B1's bound, timed in turns, B1 by launch group), B2 (``nms.py``,
-equal masks, in turns), B4 (``groupnorm.py``, both within B4's bound, in
-turns), B6 (``int8_conv.py``, bitwise given the same s_x and weights).
+entry,serving,decode,training,timing,breakdown``) and prints no result
+lines: for a first call after a kernel change.  ``--phases parent`` (not
+in the default run) compares kernels with a parent commit's, each whose
+module is in ``parent_kernels/`` (git-ignored): B1 and B5
+(``bottleneck.py``, within B1's bound, timed in turns, B1 by launch
+group), B2 (``nms.py``, equal masks, in turns per call and in device
+time), B4 (``groupnorm.py``, both within B4's bound, in turns), B6
+(``int8_conv.py``, bitwise given the same s_x and weights), B7
+(``stem.py``, both bitwise the plain version, in turns per call and in
+device time, batch 8 and 128).
 Put there that commit's ``ops/<module>.py`` and the ``ops/csrc`` sources
 and headers they build.
 
@@ -115,10 +131,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.export import init_params
-from retinanet_tpu_torch.infer import Detector, benchmark
+from retinanet_tpu_torch.infer import (Detector, benchmark,
+                                       forward_gflops_per_image)
 from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
                                                ConvGN, GroupNorm,
                                                group_norm, max_pool_same,
@@ -244,7 +262,7 @@ STEM = (320, 320, 64)
 # than the host takes to enqueue the timed calls.
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
-          "training", "timing", "breakdown")
+          "decode", "training", "timing", "breakdown")
 # Run only when asked for (``--phases parent``): the parent commit's B1, B5
 # and B6 sources, placed in PARENT_DIR, against this tree's on the card.
 PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
@@ -678,26 +696,46 @@ def check_b5(device) -> float:
     return worst
 
 
+# B7's checks, (B, H, W, C): the stem's shape at batch 2, 8 and 128; odd
+# sides (TF-SAME pads top and left by one) with 38, 37 and 35 output rows,
+# so that the last of the kernel's 4-row bands holds 2, 1 and 3 rows, and
+# 3 output rows, one short band; C = 256 (8 columns a CTA) and C = 2048
+# (one column a CTA, every window's third column loaded by its own
+# thread).
+B7_CASES = ((2, *STEM), (8, *STEM), (128, *STEM), (2, 75, 57, 64),
+            (2, 73, 57, 64), (2, 69, 55, 64), (1, 5, 7, 64),
+            (2, 75, 57, 256), (2, 20, 21, 2048))
+
+
+def stem_case(shape, gen, device):
+    """A bf16 stem activation y and per-image scale in [0.5, 1.5), shift
+    ±0.3 (fp32; the wrapper rounds them to bf16)."""
+    batch, _, _, c = shape
+    y = torch.randn(*shape, generator=gen).to(torch.bfloat16).to(device)
+    scale = (torch.rand(batch, c, generator=gen) + 0.5).to(device)
+    shift = (0.3 * torch.randn(batch, c, generator=gen)).to(device)
+    return y, scale, shift
+
+
 def check_b7(device) -> float:
-    """B7 vs its plain version at the stem's shape (batch 2 and 8) and at
-    odd sides: bitwise equal and repeatable."""
+    """B7 vs its plain version at B7_CASES: bitwise equal and
+    repeatable."""
     gen = torch.Generator().manual_seed(8)
-    for batch, (h, w, c) in ((2, STEM), (8, STEM), (2, (75, 57, 64))):
-        y = torch.randn(batch, h, w, c, generator=gen).to(
-            torch.bfloat16).to(device)
-        scale = (torch.rand(batch, c, generator=gen) + 0.5).to(device)
-        shift = (0.3 * torch.randn(batch, c, generator=gen)).to(device)
+    for shape in B7_CASES:
+        y, scale, shift = stem_case(shape, gen, device)
         ref = b7.gn_relu_maxpool_plain(y, scale, shift)
         out = b7.gn_relu_maxpool(y, scale, shift)
         again = b7.gn_relu_maxpool(y, scale, shift)
         torch.cuda.synchronize()
         equal = bool(torch.equal(out, ref))
-        log("b7-check", shape=[batch, h, w, c], out=list(out.shape),
+        log("b7-check", shape=list(shape), out=list(out.shape),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             bitwise_equal=equal, bitwise_repeat=bool(torch.equal(out, again)))
         if not equal or not torch.equal(out, again):
             raise AssertionError(f"B7 differs from its plain version at "
-                                 f"{[batch, h, w, c]}")
+                                 f"{list(shape)}")
+        del y, ref, out, again
+    torch.cuda.empty_cache()
     return 0.0
 
 
@@ -947,9 +985,9 @@ def check_fused_proj(device):
     return launches
 
 
-def stem_inputs(gen, device):
-    """A 640-px batch of 8 and He 7×7 stem weights (HWIO), GN γ/β."""
-    x = torch.randn(8, SIZE, SIZE, 3, generator=gen)
+def stem_inputs(gen, device, batch=8):
+    """A 640-px batch and He 7×7 stem weights (HWIO), GN γ/β."""
+    x = torch.randn(batch, SIZE, SIZE, 3, generator=gen)
     w = he_kernel((64, 3, 7, 7), gen).permute(2, 3, 1, 0).contiguous()
     return [t.to(device) for t in (x, w, *gn_affine(64, gen))]
 
@@ -1046,18 +1084,23 @@ def clustered_boxes(batch, n, gen, quantized=False):
 
 
 # B2's checks, (batch, N) and whether the boxes sit on a coarse grid: the
-# b8 and b128 serving shapes, the largest N, blocks that end before, at
-# and one box into a 64-box word, and exact IoU ties.
+# b8 and b128 serving shapes, N = 2048, the reference decode path's N at
+# 640 px (4125: a ring of five 65-word row blocks), 5000, 8192 (three
+# 128-word slots), 16384 (two 192-word slots, the rest of each row block
+# read from device memory), blocks that end before, at and one box into a
+# 64-box word, and exact IoU ties.
 B2_CASES = (((8, 1000), False), ((128, 1000), False), ((3, 200), False),
-            ((1, 2048), False), ((2, 63), False), ((2, 64), False),
-            ((2, 65), False), ((1, 1), False), ((8, 1000), True))
+            ((1, 2048), False), ((8, 4125), False), ((1, 5000), False),
+            ((2, 8192), False), ((1, 16384), False), ((2, 63), False),
+            ((2, 64), False), ((2, 65), False), ((1, 1), False),
+            ((8, 1000), True))
 
 
-def check_b2(device) -> int:
+def check_b2(device) -> tuple[int, int]:
     """B2's keep mask vs the plain greedy mask at B2_CASES: exactly equal
-    and repeatable."""
+    and repeatable.  Returns (mismatches, the largest N compared)."""
     gen = torch.Generator().manual_seed(2)
-    mismatches = 0
+    mismatches, largest = 0, 0
     for shape, quantized in B2_CASES:
         boxes = clustered_boxes(*shape, gen, quantized).to(device)
         want = b2._greedy_keep_mask(boxes, 0.5)
@@ -1070,7 +1113,8 @@ def check_b2(device) -> int:
         if diff or not torch.equal(got, again):
             raise AssertionError(f"B2 keep mask differs at {shape}")
         mismatches += diff
-    return mismatches
+        largest = max(largest, got.shape[1])
+    return mismatches, largest
 
 
 def flagship_config(batch: int = 8, fused: bool = True) -> Config:
@@ -1153,6 +1197,101 @@ def check_flagship(device):
         if diff:
             raise AssertionError("B2 differs on the model's candidates")
     del detectors, plain, fused
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_decode(device):
+    """The reference decode path on the serving model's own heads (the
+    bench config at 640 px, batch 8, seeded weights and images), at the
+    default NMSConfig and at score_threshold 0.005:
+    ``nms_padded(decode_levels(...))`` at the shared pre-NMS cap against
+    ``fused_decode_nms`` (valid and class ids exact, scores to 1e-6 and
+    valid boxes to 1e-5: ``tests/test_nms.py``'s bounds for JAX's pair),
+    then with ``pre_nms_top_k=None``, counted: every candidate, [8,4125,4]
+    at 640 px, through one B2 launch, whose mask must equal the plain mask.
+    Both paths timed at batch 8 and 128 (the heads repeated)."""
+    config = flagship_config()
+    levels = build_levels(config.anchors)
+    model = RetinaNet.from_config(config.model, levels.num_anchors, 80)
+    model.load_state_dict(init_params(config,
+                                      torch.Generator().manual_seed(0), 80))
+    model.to(device).eval()
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    with torch.inference_mode():
+        heads = model(images)
+    cls, reg = heads["classifications"], heads["regressions"]
+    del model, images, heads
+    configs = (config.nms, dataclasses.replace(config.nms,
+                                               score_threshold=0.005))
+    every_n = sum(min(config.nms.top_k_per_level,
+                      math.prod(levels.grid_hw(pn, SIZE)) * levels.num_anchors)
+                  for pn in levels)  # 4125 at 640 px
+    launches = {}
+    for cfg in configs:
+        with torch.inference_mode():
+            decoded = b2.decode_levels(cls, reg, levels, SIZE, cfg)
+            ref = b2.nms_padded(decoded, cfg.iou_threshold,
+                                cfg.max_output_size,
+                                pre_nms_top_k=cfg.pre_nms_top_k)
+            got = b2.fused_decode_nms(cls, reg, levels, (SIZE, SIZE), cfg)
+            valid = ref.valid
+            same = {
+                "valid": bool(torch.equal(got.valid, valid)),
+                "class_ids": bool(torch.equal(got.class_ids, ref.class_ids)),
+                "scores": (got.scores - ref.scores).abs().max().item(),
+                "boxes": ((got.boxes - ref.boxes)[valid].abs().max().item()
+                          if valid.any() else 0.0)}
+            # The main path of this phase, counted: every candidate.
+            b2.nms_keep_mask_batch.launches = 0
+            every = b2.nms_padded(decoded, cfg.iou_threshold,
+                                  cfg.max_output_size, pre_nms_top_k=None)
+            torch.cuda.synchronize()
+            launches[cfg.score_threshold] = b2.nms_keep_mask_batch.launches
+            _, shifted = b2.padded_candidates(decoded, None)
+            mismatches = int((b2.nms_keep_mask_batch(shifted,
+                                                     cfg.iou_threshold)
+                              != b2._greedy_keep_mask(shifted,
+                                                      cfg.iou_threshold)
+                              ).sum().item())
+        log("decode-check", score_threshold=cfg.score_threshold,
+            pre_nms_top_k=cfg.pre_nms_top_k,
+            valid_candidates=int(decoded.valid.sum().item()),
+            detections=int(valid.sum().item()), equal_fused=same,
+            every_candidate_boxes=list(shifted.shape),
+            b2_launches=launches[cfg.score_threshold],
+            detections_every_candidate=int(every.valid.sum().item()),
+            b2_mismatches=mismatches)
+        if (not same["valid"] or not same["class_ids"] or same["scores"] > 1e-6
+                or same["boxes"] > 1e-5):
+            raise AssertionError(f"the reference decode path differs from "
+                                 f"fused_decode_nms at {cfg}")
+        if (launches[cfg.score_threshold] != 1 or mismatches
+                or tuple(shifted.shape) != (8, every_n, 4)):
+            raise AssertionError("every candidate did not go through B2, "
+                                 "or its mask differs from the plain mask")
+    cfg = configs[1]
+    for batch in (8, 128):
+        cls_b = {k: v.repeat(batch // 8, 1, 1, 1, 1) for k, v in cls.items()}
+        reg_b = {k: v.repeat(batch // 8, 1, 1, 1, 1) for k, v in reg.items()}
+        calls = {
+            "fused_decode_nms": lambda: b2.fused_decode_nms(
+                cls_b, reg_b, levels, (SIZE, SIZE), cfg),
+            "reference": lambda: b2.nms_padded(
+                b2.decode_levels(cls_b, reg_b, levels, SIZE, cfg),
+                cfg.iou_threshold, cfg.max_output_size,
+                pre_nms_top_k=cfg.pre_nms_top_k),
+            "reference_every_candidate": lambda: b2.nms_padded(
+                b2.decode_levels(cls_b, reg_b, levels, SIZE, cfg),
+                cfg.iou_threshold, cfg.max_output_size, pre_nms_top_k=None)}
+        with torch.inference_mode():
+            ms = {k: cuda_time_ms(f, 10 if batch == 8 else 3)
+                  for k, f in calls.items()}
+        log("decode-time", batch=batch, score_threshold=cfg.score_threshold,
+            ms=ms)
+        del cls_b, reg_b
     torch.cuda.empty_cache()
     return launches
 
@@ -1377,6 +1516,9 @@ def time_gn_model(device):
             log("gn-e2e-time", path=path, batch=batch, b4=on,
                 images_per_sec=r["images_per_sec"],
                 p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
+            if batch == 128:
+                B128_RATES.setdefault(path + "+b4" * on, []).append(
+                    r["images_per_sec"])
             torch.cuda.empty_cache()
     for on in (False, True, True, False):
         r = benchmark_train(train_config(32), batch_size=32, steps=5,
@@ -1699,10 +1841,11 @@ def time_kernels(device):
 
 def time_b2(device, gen):
     """B2 at the serving shapes (batch 8 and 128, and the single-image
-    entry) against its plain version, with its device time per kernel, its
-    operations bound and the floor of its dependency chain; returns the
-    batch-8 figures for the kernel line."""
-    for shape in ((8, 1000), (128, 1000), (1, 1000)):
+    entry) and at the reference decode path's [8,4125,4] against its plain
+    version, with its device time per kernel, its operations bound and the
+    floor of its dependency chain; returns the batch-8 serving figures for
+    the kernel line, with N = 4125's."""
+    for shape in ((8, 1000), (128, 1000), (1, 1000), (8, 4125)):
         boxes = clustered_boxes(*shape, gen).to(device)
         single = shape[0] == 1
         kernel = ((lambda: b2.nms_keep_mask(boxes[0], 0.5)) if single else
@@ -1718,9 +1861,12 @@ def time_b2(device, gen):
             chain_floor_ms=b2_chain_floor_ms(shape[1]),
             launches_and_device_ms=kernels,
             entry="nms_keep_mask" if single else "nms_keep_mask_batch")
-        if shape[0] == 8:
+        if shape == (8, 1000):
             timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                           bound_by=by)
+        elif shape == (8, 4125):
+            timing.update(ms_n4125=k_ms, plain_ms_n4125=p_ms,
+                          bound_ms_n4125=bound)
     return timing
 
 
@@ -1942,21 +2088,100 @@ def time_new_kernels(device, int8_shapes):
     del x, params, wts
 
     timing["b6"] = time_b6(device, int8_shapes, gen)
-
-    h, w, c = STEM
-    y = torch.randn(8, h, w, c, generator=gen).to(torch.bfloat16).to(device)
-    scale = (torch.rand(8, c, generator=gen) + 0.5).to(device)
-    shift = (0.3 * torch.randn(8, c, generator=gen)).to(device)
-    k_ms = cuda_time_ms(lambda: b7.gn_relu_maxpool(y, scale, shift), 20)
-    p_ms = cuda_time_ms(lambda: b7.gn_relu_maxpool_plain(y, scale, shift), 10)
-    ms, by = bound(0, y.numel() * 2 + y.numel() // 4 * 2 + 2 * 8 * c * 4,
-                   PEAK_FP32)
-    log("b7-time", shape=[8, h, w, c], kernel_ms=k_ms, plain_ms=p_ms,
-        bound_ms=ms, bound_by=by)
-    timing["b7"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by,
-                        library_ms=None)
+    timing["b7"] = time_b7(device, gen)
     torch.cuda.empty_cache()
     return timing
+
+
+def b7_bound(shape):
+    """(ms, bound_by) of B7 on y [B,H,W,C] bf16 with fp32 scale and shift
+    [B,C]: y read once, the pooled output written once; ~3 operations per
+    element of y (multiply, add, max), far under the fp32 peak."""
+    batch, h, w, c = shape
+    out = batch * -(-h // 2) * -(-w // 2) * c
+    return bound(3 * batch * h * w * c,
+                 batch * h * w * c * 2 + out * 2 + 2 * batch * c * 4,
+                 PEAK_FP32)
+
+
+def time_b7(device, gen):
+    """B7 at the stem's shape, batch 8 and 128: ms per call between CUDA
+    events (the host's launch in it) and device ms (queued), its plain
+    version, its bytes bound and, as a yardstick
+    (not the same function), ``F.max_pool2d`` alone on the same
+    channels_last y, which moves the same bytes.  Then ``fused_stem`` split
+    into conv, statistics and B7, beside the model's stem layers
+    (``ConvGN_0`` + ``max_pool_same``) eager and with B4, at batch 8 and
+    128.  Returns the batch-8 figures for the kernel line, with b128's."""
+    timing = {}
+    for batch in (8, 128):
+        shape = (batch, *STEM)
+        y, scale, shift = stem_case(shape, gen, device)
+        iters = 20 if batch == 8 else 5
+
+        def call():
+            b7.gn_relu_maxpool(y, scale, shift)
+
+        k_ms = cuda_time_ms(call, iters)
+        dev_ms = cuda_time_ms(call, iters, queued=True)
+        p_ms = cuda_time_ms(lambda: b7.gn_relu_maxpool_plain(y, scale, shift),
+                            10 if batch == 8 else 3, warmup=1)
+        yc = y.permute(0, 3, 1, 2)
+        pool_ms = cuda_time_ms(lambda: F.max_pool2d(yc, 3, 2, padding=1),
+                               iters, queued=True)
+        ms, by = b7_bound(shape)
+        log("b7-time", shape=list(shape), kernel_ms=k_ms,
+            device_ms=dev_ms, share_of_bound=ms / dev_ms,
+            plain_ms=p_ms, bound_ms=ms,
+            bound_by=by, yardstick_max_pool2d_device_ms=pool_ms,
+            launches_and_device_ms=kernel_launches(call))
+        if batch == 8:
+            timing = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                          bound_ms=ms, bound_by=by, library_ms=None)
+        else:
+            timing.update(ms_b128=k_ms, device_ms_b128=dev_ms,
+                          bound_ms_b128=ms)
+        del y, scale, shift, yc
+        torch.cuda.empty_cache()
+        time_stem(device, gen, batch)
+    return timing
+
+
+def time_stem(device, gen, batch):
+    """``fused_stem`` at a 640-px batch, whole and by part (``stem_conv``,
+    ``stem_statistics``, B7 with its NHWC view), against the model's stem
+    layers on the same weights, eager (``group_norm``) and with B4."""
+    x, w, gamma, beta = stem_inputs(gen, device, batch)
+    iters = 10 if batch == 8 else 3
+    y = b7.stem_conv(x, w)
+    scale, shift = b7.stem_statistics(y, gamma, beta)
+    parts = {
+        "conv": lambda: b7.stem_conv(x, w),
+        "statistics": lambda: b7.stem_statistics(y, gamma, beta),
+        "b7": lambda: b7.gn_relu_maxpool(y.permute(0, 2, 3, 1).contiguous(),
+                                         scale, shift),
+        "whole": lambda: b7.fused_stem(x, w, gamma, beta)}
+    stem = ConvGN(3, 64, kernel_size=7, strides=2, activation="relu")
+    with torch.no_grad():
+        stem.Conv_0.kernel.copy_(w.permute(3, 2, 0, 1))
+        stem.GroupNorm_0.gamma.copy_(gamma)
+        stem.GroupNorm_0.beta.copy_(beta)
+    stem.to(device)
+    xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    def layers():
+        return max_pool_same(stem(xc), 3, 2)
+
+    with torch.no_grad():
+        ms = {k: cuda_time_ms(f, iters) for k, f in parts.items()}
+        model_ms = {}
+        for on in (False, True):
+            stem.GroupNorm_0.use_kernel = on
+            model_ms["b4" if on else "eager"] = cuda_time_ms(layers, iters)
+    log("stem-time", batch=batch, fused_stem_ms_by_part=ms,
+        model_stem_layers_ms=model_ms)
+    del x, y, xc, stem
+    torch.cuda.empty_cache()
 
 
 def serving_config(path: str, batch: int) -> Config:
@@ -1967,6 +2192,25 @@ def serving_config(path: str, batch: int) -> Config:
     config = flagship_config(batch, fused=path != "plain")
     return config.replace(model=dataclasses.replace(
         config.model, fused_proj=path == "fused_proj"))
+
+
+# images/s of each batch-128 serving run, by path ("+b4": every GroupNorm
+# on B4), for the MFU lines.
+B128_RATES = {}
+
+
+def log_mfu():
+    """Model FLOP utilization of each batch-128 serving path timed:
+    images/s × ``forward_gflops_per_image`` over the H100's dense bf16 peak
+    (989 TFLOP/s; int8 paths are held to the same peak)."""
+    gflops = forward_gflops_per_image(flagship_config(128))
+    log("mfu-flops", gflops_per_image=gflops, image_size=SIZE,
+        peak_tflops=PEAK_BF16 / 1e12)
+    for path, rates in B128_RATES.items():
+        ips = sum(rates) / len(rates)
+        log("mfu", path=path, batch=128, images_per_sec=ips,
+            tflops=ips * gflops / 1e3, mfu=ips * gflops * 1e9 / PEAK_BF16,
+            images_per_sec_runs=rates)
 
 
 def time_end_to_end(device):
@@ -1983,6 +2227,8 @@ def time_end_to_end(device):
         log("e2e-time", path=path, batch=batch,
             images_per_sec=r["images_per_sec"],
             p50_ms=r["p50_latency_ms"], p99_ms=r["p99_latency_ms"])
+        if batch == 128:
+            B128_RATES.setdefault(path, []).append(r["images_per_sec"])
         torch.cuda.empty_cache()
 
 
@@ -2165,12 +2411,14 @@ def parent_b6(device, gen, int8_shapes):
     log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends)
 
 
-def in_turns(calls, iters):
+def in_turns(calls, iters, queued=False):
     """ms per call of each of ``calls`` {"parent": fn, "this": fn}, timed
-    parent, this, this, parent."""
+    parent, this, this, parent (``queued``: device ms, see
+    ``cuda_time_ms``)."""
     ms = {}
     for who in ("parent", "this", "this", "parent"):
-        ms.setdefault(who, []).append(cuda_time_ms(calls[who], iters))
+        ms.setdefault(who, []).append(cuda_time_ms(calls[who], iters,
+                                                   queued=queued))
     return ms
 
 
@@ -2211,7 +2459,7 @@ def parent_b4(device, gen):
 
 def parent_b2(device, gen):
     """B2 at the serving shapes against the parent's: equal keep masks,
-    timed in turns."""
+    timed in turns, per call and in device time."""
     old2 = parent_module("nms")
     for shape in ((8, 1000), (128, 1000)):
         boxes = clustered_boxes(*shape, gen).to(device)
@@ -2219,21 +2467,47 @@ def parent_b2(device, gen):
                  "this": lambda: b2.nms_keep_mask_batch(boxes, 0.5)}
         equal = bool(torch.equal(calls["parent"](), calls["this"]()))
         log("parent-b2", shape=[*shape, 4], equal=equal,
-            ms_in_turns=in_turns(calls, 20))
+            ms_in_turns=in_turns(calls, 20),
+            device_ms_in_turns=in_turns(calls, 20, queued=True),
+            launches_and_device_ms={who: kernel_launches(f)
+                                    for who, f in calls.items()})
         if not equal:
             raise AssertionError(f"B2 differs from the parent's at {shape}")
 
 
+def parent_b7(device, gen):
+    """B7 at the stem's shape, batch 8 and 128, against the parent's:
+    both bitwise equal to the plain version, timed in turns, per call and
+    in device time."""
+    old7 = parent_module("stem")
+    for batch in (8, 128):
+        y, scale, shift = stem_case((batch, *STEM), gen, device)
+        calls = {"parent": lambda: old7.gn_relu_maxpool(y, scale, shift),
+                 "this": lambda: b7.gn_relu_maxpool(y, scale, shift)}
+        ref = b7.gn_relu_maxpool_plain(y, scale, shift)
+        equal = {who: bool(torch.equal(f(), ref)) for who, f in calls.items()}
+        del ref
+        iters = 20 if batch == 8 else 5
+        log("parent-b7", shape=[batch, *STEM], bitwise_plain=equal,
+            ms_in_turns=in_turns(calls, iters),
+            device_ms_in_turns=in_turns(calls, iters, queued=True))
+        if not all(equal.values()):
+            raise AssertionError(f"B7 or the parent's differs from the plain "
+                                 f"version at batch {batch}")
+        del y, scale, shift
+        torch.cuda.empty_cache()
+
+
 # The parent comparisons, each run when its module is in PARENT_DIR.
 PARENT_CHECKS = {"bottleneck": parent_b1_b5, "groupnorm": parent_b4,
-                 "nms": parent_b2}
+                 "nms": parent_b2, "stem": parent_b7}
 
 
 def check_parent(device, int8_shapes):
     """This tree's kernels against the parent commit's, built from the
     sources in PARENT_DIR: B1 and B5 (``bottleneck.py``), B2 (``nms.py``),
-    B4 (``groupnorm.py``) and B6 (``int8_conv.py``), each where its module
-    is there."""
+    B4 (``groupnorm.py``), B6 (``int8_conv.py``) and B7 (``stem.py``),
+    each where its module is there."""
     gen = torch.Generator().manual_seed(12)
     ran = []
     for name, check in PARENT_CHECKS.items():
@@ -2305,13 +2579,16 @@ def main(argv=()) -> int:
         gn_shapes = record_gn_shapes(device)
     if "checks" in phases:
         errs["b1"] = check_b1(device)
-        errs["b2"] = float(check_b2(device))
+        b2_mismatches, b2_largest_n = check_b2(device)
+        errs["b2"] = float(b2_mismatches)
         errs["b3"] = check_b3(device)
         errs["b4"] = check_b4(device, gn_shapes)
         errs["b5"] = check_b5(device)
         errs["b7"] = check_b7(device)
     if "serving" in phases:
         launches.update(check_flagship(device))
+    if "decode" in phases:
+        decode_launches = check_decode(device)
     if "training" in phases:
         launches["b3"] = check_training(device)["b3"]
     if "int8" in phases:
@@ -2339,6 +2616,8 @@ def main(argv=()) -> int:
         time_training(device)
     if "breakdown" in phases:
         breakdown(device)
+    if B128_RATES:
+        log_mfu()
     log("done", seconds=time.monotonic() - t0, phases=list(phases),
         lossy_profile_windows=profiling.lossy_windows)
     if phases != PHASES:
@@ -2360,12 +2639,15 @@ def main(argv=()) -> int:
         "b7": ("gn_relu_maxpool", "stem.cu",
                "retinanet_tpu/ops/pallas/stem.py:94"),
     }
+    extra = {"b2": {"largest_n_checked": b2_largest_n,
+                    "launches_reference_decode_every_candidate":
+                        sum(decode_launches.values())}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"retinanet_tpu_torch/ops/csrc/{src}",
          "replaces": replaces, "launches": launches[key],
          "max_abs_err": errs[key],
-         **{"library_ms": None, **timing[key]}}
+         **{"library_ms": None, **timing[key]}, **extra.get(key, {})}
         for key, (name, src, replaces) in sources.items()]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

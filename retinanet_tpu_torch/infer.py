@@ -2,7 +2,9 @@
 
 ``make_inference_fn`` builds images → normalize → forward (compute dtype)
 → ``fused_decode_nms``; ``Detector`` wraps it with weights, an explicit
-device and host-side numpy detections; ``benchmark`` times it on the card.
+device and host-side numpy detections; ``benchmark`` times it on the card;
+``forward_gflops_per_image`` counts the model's forward FLOPs, the
+numerator of a serving MFU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import FlopCounterMode
 
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.ops.anchors import Levels, build_levels
@@ -148,3 +151,32 @@ def benchmark(config: Config, batch_size: int = 8, steps: int = 20,
         "batch_size": batch_size,
         "image_size": size,
     }
+
+
+def forward_gflops_per_image(config: Config, num_classes: int = 80,
+                             algorithmic: bool = False) -> float:
+    """Forward GFLOPs per image of the model at ``config.data.image_size``.
+
+    Counted by ``FlopCounterMode`` (convolutions and matrix products, 2
+    per multiply-add) on the unfused float model (``fused_*`` off,
+    ``quantize="none"``: the kernels compute the same convolutions) built
+    on the meta device: no device work, no compile.  ``algorithmic`` (the
+    JAX package's true grouped-conv count) changes nothing for the dense
+    backbone; a backbone the port lacks raises, as
+    ``RetinaNet.from_config`` does.
+    """
+    del algorithmic  # only grouped convolutions count differently
+    model_cfg = dataclasses.replace(
+        config.model, fused_blocks=False, fused_res2=False,
+        fused_res3_strips=0, fused_res4_strips=0, fused_proj=False,
+        fused_train=False, quantize="none")
+    size = config.data.image_size
+    with torch.device("meta"):
+        model = RetinaNet.from_config(model_cfg,
+                                      build_levels(config.anchors).num_anchors,
+                                      num_classes).eval()
+        images = torch.empty(1, size, size, 3)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        model(images)
+    return counter.get_total_flops() / 1e9

@@ -1,6 +1,8 @@
 """Static-shape decode + classwise greedy NMS (port of
-``retinanet_tpu/ops/nms.py``: ``BoxesDecoded``, ``_select_level_candidates``,
-``_greedy_keep_mask`` and the serving path ``fused_decode_nms``).
+``retinanet_tpu/ops/nms.py``: ``BoxesDecoded``, ``classmap_decode``,
+``_select_level_candidates``, the reference path ``decode_level`` /
+``decode_levels`` / ``nms_padded``, ``_greedy_keep_mask`` and the serving
+path ``fused_decode_nms``).
 
 Suppression goes through ``nms_keep_mask_batch``: the hand-written CUDA
 kernel (``csrc/nms.cu``, port of ``ops/pallas/nms_kernel.py``) for a CUDA
@@ -9,14 +11,17 @@ suppression choices (``use_pallas``, "sequential", "jacobi") compute the
 same bit-exact greedy mask, so they are one function here.
 
 ``jax.lax.top_k`` puts the lowest index first among equal values; every
-selection here is a stable descending sort, which does the same.
+selection here is a stable descending sort, which does the same.  Torch
+has no approximate top-k: ``approx`` and ``use_approx_top_k`` take the
+exact one (JAX's CPU lowering of ``approx_max_k`` returns the exact set
+too).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +39,11 @@ LIB = KernelLibrary("nms.cu", {
 })
 
 
+# B2's largest N: the scan keeps a 64-bit removed word per 64 boxes in
+# shared memory beside a ring of at least two slots (``csrc/nms.cu``).
+MAX_BOXES = 1 << 20
+
+
 class BoxesDecoded(NamedTuple):
     """Padded detections: corner boxes, scores, class ids and validity."""
 
@@ -41,6 +51,11 @@ class BoxesDecoded(NamedTuple):
     scores: Tensor     # [..., K]
     class_ids: Tensor  # [..., K] int32
     valid: Tensor      # [..., K] bool
+
+
+def classmap_decode(classmap: Tensor, threshold: float = 0.5) -> Tensor:
+    """fg_mask = max class prob > threshold."""
+    return classmap.amax(dim=-1) > threshold
 
 
 def _top_k(x: Tensor, k: int):
@@ -101,8 +116,9 @@ def _greedy_keep_mask(boxes: Tensor, iou_threshold: float) -> Tensor:
 def nms_keep_mask_batch(boxes: Tensor, iou_threshold: float = 0.5) -> Tensor:
     """Keep mask [B,N] bool of score-sorted corner boxes [B,N,4] float32.
 
-    CUDA: kernel B2, the upper-triangle bitmask and a block-wise scan
-    (two launches, N ≤ 2048).  CPU: ``_greedy_keep_mask``.
+    CUDA: kernel B2, the upper-triangle bitmask (N²/16 bytes of scratch
+    per image) and a block-wise scan; two launches, N ≤ ``MAX_BOXES``.
+    CPU: ``_greedy_keep_mask``.
     """
     if not boxes.is_cuda:
         return _greedy_keep_mask(boxes, iou_threshold)
@@ -110,8 +126,9 @@ def nms_keep_mask_batch(boxes: Tensor, iou_threshold: float = 0.5) -> Tensor:
         raise ValueError(f"boxes must be [B,N,4], got {tuple(boxes.shape)}")
     check_cuda(boxes, "boxes", torch.float32)
     bsz, n, _ = boxes.shape
-    if n > 2048:
-        raise ValueError(f"the CUDA NMS kernel takes N <= 2048, got {n}")
+    if n > MAX_BOXES:
+        raise ValueError(f"the CUDA NMS kernel takes N <= {MAX_BOXES} "
+                         f"(MAX_BOXES), got {n}")
     keep = torch.empty(bsz, n, dtype=torch.bool, device=boxes.device)
     if n == 0 or bsz == 0:
         return keep
@@ -131,6 +148,123 @@ nms_keep_mask_batch.launches = 0
 def nms_keep_mask(boxes: Tensor, iou_threshold: float = 0.5) -> Tensor:
     """Keep mask [N] of score-sorted corner boxes [N,4] (batch of one)."""
     return nms_keep_mask_batch(boxes[None], iou_threshold)[0]
+
+
+def _suppression_boxes(boxes: Tensor, ids: Tensor, valid: Tensor,
+                       classwise: bool = True) -> Tensor:
+    """The boxes suppression sees: offset by ``class_id·4`` (classwise) so
+    that boxes of different classes never overlap, invalid ones parked
+    1e4 away so they overlap no valid box.  Contiguous [B,N,4]."""
+    if classwise:
+        boxes = boxes + (ids[..., None] * 4.0).to(boxes.dtype)
+    return torch.where(valid[..., None], boxes, boxes - 1e4).contiguous()
+
+
+def _select_detections(cand: BoxesDecoded, keep: Tensor,
+                       max_output_size: int) -> BoxesDecoded:
+    """The top ``max_output_size`` kept candidates by score; slots past
+    the survivors hold score 0 and ``valid`` False."""
+    out_scores = torch.where(keep, cand.scores,
+                             torch.full_like(cand.scores, -1.0))
+    b = out_scores.shape[0]
+    k = min(max_output_size, out_scores.shape[1])
+    sel_scores, sel_idx = _top_k(out_scores, k)
+    return BoxesDecoded(
+        boxes=torch.gather(cand.boxes, 1,
+                           sel_idx[..., None].expand(b, k, 4)),
+        scores=torch.where(sel_scores > 0, sel_scores,
+                           torch.zeros_like(sel_scores)),
+        class_ids=torch.gather(cand.class_ids, 1, sel_idx),
+        valid=sel_scores > 0,
+    )
+
+
+def decode_level(classifications: Tensor, regressions: Tensor,
+                 anchor_sizes: Tensor, top_k: int, score_threshold: float,
+                 approx: bool = False, approx_recall: float = 0.95
+                 ) -> BoxesDecoded:
+    """Top-k candidates of one level: logits [B,H,W,A,C], regressions
+    [B,H,W,A,4], normalized anchor sizes [A,2] → BoxesDecoded [B,k].
+
+    The top-k runs on the max-logit map (``_select_level_candidates``,
+    packed keys for bf16 with ≤128 classes) and only the k winners are
+    sigmoided and decoded; the anchor's centre and size come from the flat
+    index (y·W + x)·A + a arithmetically, as the JAX function computes
+    them.  ``approx`` and ``approx_recall`` name a TPU unit; the top-k is
+    exact.
+    """
+    b, h, w, a = classifications.shape[:4]
+    scores, ids, top_idx = _select_level_candidates(classifications, top_k)
+    k = top_idx.shape[1]
+    regr = torch.gather(regressions.reshape(b, h * w * a, 4), 1,
+                        top_idx[..., None].expand(b, k, 4)).float()
+    ai = top_idx % a
+    cell = top_idx // a
+    cy = ((cell // w).float() + 0.5) / h
+    cx = ((cell % w).float() + 0.5) / w
+    asz = anchor_sizes.to(device=top_idx.device, dtype=torch.float32)[ai]
+    shift, log_scale = regr.split(2, dim=-1)
+    center = shift * asz + torch.stack([cy, cx], dim=-1)
+    size = torch.exp(log_scale) * asz
+    boxes = box_ops.from_center_box(torch.cat([center, size], dim=-1))
+    return BoxesDecoded(boxes=boxes, scores=scores, class_ids=ids,
+                        valid=scores > score_threshold)
+
+
+def decode_levels(classifications: Dict[str, Tensor],
+                  regressions: Dict[str, Tensor], levels: Levels,
+                  image_size, cfg: NMSConfig = NMSConfig()) -> BoxesDecoded:
+    """``decode_level`` on every level, in sorted level-name order,
+    concatenated: ``top_k_per_level`` (or fewer, where a level has fewer
+    anchors) candidates per level."""
+    parts = []
+    for pn in sorted(classifications.keys()):
+        anchor_sizes = torch.from_numpy(
+            levels.normalized_anchor_sizes(pn, image_size))
+        parts.append(decode_level(
+            classifications[pn], regressions[pn], anchor_sizes,
+            cfg.top_k_per_level, cfg.score_threshold,
+            approx=cfg.use_approx_top_k,
+            approx_recall=cfg.approx_top_k_recall))
+    return BoxesDecoded(*(torch.cat(field, dim=1) for field in zip(*parts)))
+
+
+def padded_candidates(decoded: BoxesDecoded, pre_nms_top_k: Optional[int],
+                      classwise: bool = True
+                      ) -> Tuple[BoxesDecoded, Tensor]:
+    """The first half of ``nms_padded``: the top ``pre_nms_top_k`` (all
+    where None) candidates by score, invalid ones scored −1, and the
+    boxes suppression sees (``_suppression_boxes``)."""
+    n = decoded.scores.shape[-1]
+    k_in = min(pre_nms_top_k or n, n)
+    masked = torch.where(decoded.valid, decoded.scores,
+                         torch.full_like(decoded.scores, -1.0))
+    top_scores, order = _top_k(masked, k_in)
+    b = order.shape[0]
+    boxes_s = torch.gather(decoded.boxes, 1,
+                           order[..., None].expand(b, k_in, 4))
+    ids_s = torch.gather(decoded.class_ids, 1, order)
+    valid_s = top_scores > 0
+    return (BoxesDecoded(boxes_s, top_scores, ids_s, valid_s),
+            _suppression_boxes(boxes_s, ids_s, valid_s, classwise))
+
+
+def nms_padded(decoded: BoxesDecoded, iou_threshold: float = 0.5,
+               max_output_size: int = 1000, classwise: bool = True,
+               use_pallas: Optional[bool] = None,
+               pre_nms_top_k: Optional[int] = None,
+               suppression: str = "sequential") -> BoxesDecoded:
+    """Batched, static-shape (class-wise) greedy NMS over padded
+    candidates [B,N]: per class, IoU ``iou_threshold``, at most
+    ``max_output_size`` survivors by descending score.  Invalid candidates
+    take part with score −1, parked far away, so they neither win nor
+    suppress; ``pre_nms_top_k`` caps the candidates entering suppression
+    (None: all N).  ``use_pallas`` and ``suppression`` choose among JAX's
+    three ways to the same exact greedy mask; here every choice is
+    ``nms_keep_mask_batch`` (B2 on the card)."""
+    cand, shifted = padded_candidates(decoded, pre_nms_top_k, classwise)
+    keep = nms_keep_mask_batch(shifted, iou_threshold) & cand.valid
+    return _select_detections(cand, keep, max_output_size)
 
 
 @functools.lru_cache(maxsize=16)
@@ -189,10 +323,8 @@ def nms_candidates(classifications: Dict[str, Tensor],
     size = torch.exp(log_scale) * a_size
     boxes_s = box_ops.from_center_box(torch.cat([center, size], dim=-1))
 
-    shifted = boxes_s + (ids_s[..., None] * 4.0).to(boxes_s.dtype)
-    shifted = torch.where(valid_s[..., None], shifted, shifted - 1e4)
     return (BoxesDecoded(boxes_s, top_scores, ids_s, valid_s),
-            shifted.contiguous())
+            _suppression_boxes(boxes_s, ids_s, valid_s))
 
 
 def fused_decode_nms(classifications: Dict[str, Tensor],
@@ -205,17 +337,4 @@ def fused_decode_nms(classifications: Dict[str, Tensor],
     cand, shifted = nms_candidates(classifications, regressions, levels,
                                    image_size, cfg)
     keep = nms_keep_mask_batch(shifted, cfg.iou_threshold) & cand.valid
-
-    out_scores = torch.where(keep, cand.scores,
-                             torch.full_like(cand.scores, -1.0))
-    b = out_scores.shape[0]
-    k = min(cfg.max_output_size, out_scores.shape[1])
-    sel_scores, sel_idx = _top_k(out_scores, k)
-    return BoxesDecoded(
-        boxes=torch.gather(cand.boxes, 1,
-                           sel_idx[..., None].expand(b, k, 4)),
-        scores=torch.where(sel_scores > 0, sel_scores,
-                           torch.zeros_like(sel_scores)),
-        class_ids=torch.gather(cand.class_ids, 1, sel_idx),
-        valid=sel_scores > 0,
-    )
+    return _select_detections(cand, keep, cfg.max_output_size)

@@ -39,10 +39,11 @@ CALLS = 3  # profiled calls, after one warm call
 # The kernel of ``torch.cuda._sleep``, which ``kernel_sequence`` launches
 # MARKERS times before and after the profiled calls, a host pause of
 # SETTLE_S between each group of markers and the calls.  A profile may miss
-# the kernels launched first after it starts (more often after many earlier
-# profiles in one process): a window counts only where it kept every closing
-# marker and at least one opening one, and is taken again up to ATTEMPTS
-# times.
+# the kernels launched in its first moments (more often after many earlier
+# profiles in one process; what it missed was every opening marker and none
+# of the calls' kernels), so each profile starts with a host pause of
+# SETTLE_S.  A window counts only where it kept every closing marker and at
+# least one opening one, and is taken again up to ATTEMPTS times.
 MARKER, MARKERS, SETTLE_S, ATTEMPTS = "spin_kernel", 16, 0.05, 3
 # Windows that lost kernels and were taken again, over the process.
 lossy_windows = 0
@@ -97,6 +98,7 @@ def kernel_sequence(call: Callable[[], None], calls: int = 1
     for _ in range(ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(SETTLE_S)
             _markers()
             time.sleep(SETTLE_S)
             for _ in range(calls):
@@ -135,6 +137,7 @@ def device_breakdown(call: Callable[[], None]) -> Dict[str, object]:
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(SETTLE_S)
         t0 = time.perf_counter()
         for _ in range(CALLS):
             call()
