@@ -97,10 +97,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 13. breakdown: ``torch.profiler`` device time by kernel group, idle share
    and kernels per call: serving at batch 8 and 128 (kernel, int8 and
    plain paths; at 128 with B4 in the model too) and training at batch 8
-   and 32 (at 32 with B4 too) (``utils/profiling.py``).
+   and 32 (at 32 with B4 too) (``utils/profiling.py``);
+14. eval (run after the decode phase): the evaluation path as a user calls
+   it, ``retinanet_tpu_torch.evaluate.main`` in-process with
+   ``--from-export`` (an export of seeded ``init_params`` weights,
+   resnet_50_dense, 3 shapes classes) on a 640-px shapes set of 64 images
+   at batch 8 and decode threshold 0.005, on the kernel path
+   (``--fused-blocks --fused-res2``: 12 B1 + 1 B2 launches per batch), the
+   plain path (1 B2) and ``--quantize int8`` (59 B6 + 1 B2), every other
+   kernel 0; one batch through the rectangular bucket 640×448 on the
+   kernel path; the kernel path's heads within HEAD_RTOL/HEAD_ATOL of the
+   plain path's on each batch it served, the bucket's included; its COCO
+   metrics within EVAL_METRIC_BOUND of the plain path's; each path's metrics, images/s over the loop and ms
+   per batch in host preparation (``select_canvas`` + ``process_sample``),
+   the ``Detector`` call and the evaluator; ``retinanet_tpu_torch.detect``
+   on three PNG files (1 B2 launch per batch, detections and annotated
+   images); the kernel path's loop over 16 images under
+   ``torch.profiler`` (device busy, idle share).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
-entry,serving,decode,training,timing,breakdown``) and prints no result
+entry,serving,decode,eval,training,timing,breakdown``) and prints no result
 lines: for a first call after a kernel change.  ``--phases parent`` (not
 in the default run) compares kernels with a parent commit's, each whose
 module is in ``parent_kernels/`` (git-ignored): B1 and B5
@@ -122,7 +138,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -133,8 +151,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from retinanet_tpu_torch import detect, evaluate, native
 from retinanet_tpu_torch.config import Config
-from retinanet_tpu_torch.export import init_params
+from retinanet_tpu_torch.data import pipeline
+from retinanet_tpu_torch.data.loaders.inferred import Inferred
+from retinanet_tpu_torch.eval_coco import COCOEvaluator, evaluate_model
+from retinanet_tpu_torch.export import (export_model, init_params,
+                                        load_exported_detector)
 from retinanet_tpu_torch.infer import (Detector, benchmark,
                                        forward_gflops_per_image)
 from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
@@ -142,6 +165,7 @@ from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
                                                group_norm, max_pool_same,
                                                resolve_groups,
                                                use_group_norm_kernel)
+from retinanet_tpu_torch.models import resnet
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops import bottleneck as b1
@@ -162,6 +186,11 @@ SIZE = 640  # the canvas side of every phase
 # (H, W, C, F) of the 12 identity blocks at 640 px, with their counts.
 STAGES = (("res2", 160, 160, 256, 64, 2), ("res3", 80, 80, 512, 128, 3),
           ("res4", 40, 40, 1024, 256, 5), ("res5", 20, 20, 2048, 512, 2))
+# The eval phase's rectangular bucket, H × W = 640 × 448, and the shapes
+# of its identity blocks (res2 160 × 112 … res5 20 × 14).
+BUCKET = (SIZE, SIZE * 7 // 10)
+BUCKET_STAGES = tuple((name, h, w * 7 // 10, c, f, count)
+                      for name, h, w, c, f, count in STAGES)
 # B1 bound: |Δ| ≤ 2⁻⁵·max(1, |ref|) per element and mean |Δ| ≤ 1e-3.  Both
 # versions round every conv to bf16 but sum it in another fp32 order, so
 # elements may sit one bf16 step apart and GN carries the step through.
@@ -262,7 +291,35 @@ STEM = (320, 320, 64)
 # than the host takes to enqueue the timed calls.
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
-          "decode", "training", "timing", "breakdown")
+          "decode", "eval", "training", "timing", "breakdown")
+# The eval phase: ``evaluate.main`` on a 640-px shapes set of EVAL_IMAGES
+# images at batch EVAL_BATCH, from an export of seeded ``init_params``
+# weights (resnet_50_dense, the three shapes classes), on each path: its
+# flags and the launches per batch it must give (every other kernel 0).
+EVAL_IMAGES, EVAL_BATCH = 64, 8
+EVAL_PATHS = {
+    "kernels": (("--fused-blocks", "--fused-res2"), {"b1": 12, "b2": 1}),
+    "plain": ((), {"b2": 1}),
+    "int8": (("--quantize", "int8"), {"b6": 59, "b2": 1}),
+}
+# The kernel path's metrics (mAP, AP50, AP75, the area mAPs and AR@k) are
+# each held to the plain path's within EVAL_METRIC_BOUND, absolute.  On
+# seeded init_params weights every score sits near the π prior (0.01), so
+# bf16 rounding re-ranks near-tied detections; on the CPU, the plain path
+# in bf16 against float32 (24 shapes images at 256 px) differed by at most
+# 0.0044 (AR@100).  The metrics themselves sit below the bound (mAP ~1e-4,
+# AR@100 ~0.006), so it tests the mechanism only; the kernel path's heads,
+# held to the plain path's on every batch it served, test the agreement.
+EVAL_METRIC_BOUND = 0.02
+EVAL_BREAKDOWN_IMAGES = 16  # the kernel path's loop under torch.profiler
+# Faults planted in B1's output on the eval path, each of which the eval
+# heads check must see: the output handed to the wrong images, shifted by
+# one row, and scaled by 1.1.
+EVAL_FAULTS = {
+    "images_rolled": lambda y: y.roll(1, 0),
+    "rows_shifted": lambda y: y.roll(1, 2),  # NCHW, channels_last
+    "scaled": lambda y: y * 1.1,
+}
 # Run only when asked for (``--phases parent``): the parent commit's B1, B5
 # and B6 sources, placed in PARENT_DIR, against this tree's on the card.
 PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
@@ -383,13 +440,14 @@ def forward_diff(a, b):
 
 def check_b1(device) -> float:
     """B1 vs plain at every stage shape, at batch 2 and at the flagship
-    run's batch 8; 4 kernels per call at res2, batch 8."""
+    run's batch 8, and at batch 8 at the eval phase's bucket shapes; 4
+    kernels per call at res2, batch 8."""
     gen = torch.Generator().manual_seed(1)
     worst = 0.0
-    for batch in (2, 8):
-        for name, h, w, c, f, _ in STAGES:
+    for batch, stages in ((2, STAGES), (8, STAGES + BUCKET_STAGES)):
+        for name, h, w, c, f, _ in stages:
             x, params = block_inputs(batch, h, w, c, f, gen, device)
-            if (name, batch) == ("res2", 8):
+            if (name, batch, w) == ("res2", 8, h):
                 wts = b1.prepare_weights(*params[::3])
                 check_block_launches("b1-launches-per-call", block_split(
                     lambda: b1.fused_bottleneck(x, *params, weights=wts)),
@@ -406,10 +464,10 @@ def check_b1(device) -> float:
                 bitwise_repeat=bool(torch.equal(out, again)))
             if (err > bound).any() or err.mean().item() > B1_MEAN:
                 raise AssertionError(f"B1 disagrees with its plain version "
-                                     f"at {name}, batch {batch}")
+                                     f"at {name} {h}x{w}, batch {batch}")
             if not torch.equal(out, again):
                 raise AssertionError(f"B1 is not bitwise repeatable at "
-                                     f"{name}, batch {batch}")
+                                     f"{name} {h}x{w}, batch {batch}")
             worst = max(worst, err.max().item())
     return worst
 
@@ -739,10 +797,10 @@ def check_b7(device) -> float:
     return 0.0
 
 
-def compare_heads(label, got, want, check=True):
-    """Log and (``check``) check each head level of ``got`` against
-    ``want`` within HEAD_RTOL/HEAD_ATOL; returns the share of
-    bitwise-equal elements and the elements outside the bound."""
+def compare_heads(label, got, want, check=True, log_levels=True):
+    """Log (``log_levels``) and (``check``) check each head level of
+    ``got`` against ``want`` within HEAD_RTOL/HEAD_ATOL; returns the share
+    of bitwise-equal elements and the elements outside the bound."""
     equal = total = outside = 0
     for head in ("classifications", "regressions"):
         for pn in ("P3", "P4", "P5", "P6", "P7"):
@@ -753,11 +811,13 @@ def compare_heads(label, got, want, check=True):
             equal += int((err == 0).sum().item())
             total += err.numel()
             outside += over
-            log(f"{label}-heads", head=head, level=pn,
-                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
-                ref_std=w.std().item(), corr=corr.item(),
-                bitwise_equal_share=(err == 0).float().mean().item(),
-                within_bound=not over, outside_bound=over)
+            if log_levels:
+                log(f"{label}-heads", head=head, level=pn,
+                    max_abs_err=err.max().item(),
+                    mean_abs_err=err.mean().item(), ref_std=w.std().item(),
+                    corr=corr.item(),
+                    bitwise_equal_share=(err == 0).float().mean().item(),
+                    within_bound=not over, outside_bound=over)
             if over and check:
                 raise AssertionError(f"{label}: heads disagree at "
                                      f"{head}/{pn}")
@@ -2522,8 +2582,294 @@ def check_parent(device, int8_shapes):
     log("parent", compared=ran)
 
 
+def eval_counters():
+    """Each kernel's wrapper, whose ``launches`` it counts, by key."""
+    return {"b1": b1.fused_bottleneck, "b2": b2.nms_keep_mask_batch,
+            "b3": b3.fused_bottleneck_bwd, "b4": b4.fused_group_norm_act,
+            "b5": b1.fused_bottleneck_proj, "b6": b6.int8_conv,
+            "b7": b7.gn_relu_maxpool}
+
+
+@contextlib.contextmanager
+def eval_timers():
+    """Host seconds per call, patched in around one ``evaluate.main``:
+    ``prepare`` (``select_canvas`` and ``process_sample``, which
+    ``evaluate_model`` looks up at each call), ``detect`` (``Detector.detect``:
+    the copy to the card, forward, decode, NMS and the copy back, which
+    waits for the card), ``evaluator`` (``COCOEvaluator.add``) and ``loop``
+    (``evaluate_model``); ``shapes`` and ``images`` the batches given to
+    ``detect`` and ``detect_end`` the host clock as each call returned."""
+    spent = {"prepare": [], "detect": [], "evaluator": [], "loop": [],
+             "shapes": [], "images": [], "detect_end": []}
+    saved = (pipeline.select_canvas, pipeline.process_sample,
+             Detector.detect, COCOEvaluator.add, evaluate.evaluate_model)
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            if key == "detect":
+                spent["shapes"].append(tuple(args[1].shape))
+                spent["images"].append(args[1])
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                end = time.perf_counter()
+                spent[key].append(end - t)
+                if key == "detect":
+                    spent["detect_end"].append(end)
+        return call
+
+    pipeline.select_canvas = timed(saved[0], "prepare")
+    pipeline.process_sample = timed(saved[1], "prepare")
+    Detector.detect = timed(saved[2], "detect")
+    COCOEvaluator.add = timed(saved[3], "evaluator")
+    evaluate.evaluate_model = timed(saved[4], "loop")
+    try:
+        yield spent
+    finally:
+        (pipeline.select_canvas, pipeline.process_sample, Detector.detect,
+         COCOEvaluator.add, evaluate.evaluate_model) = saved
+
+
+def run_eval(label, argv, expected, batches):
+    """``evaluate.main(argv)`` in-process with every launch count set to 0
+    just before and read just after; each kernel must have launched
+    ``expected`` times per batch (absent: 0).  Logs the printed metrics,
+    images/s over the loop and its split per batch: host preparation,
+    the ``Detector`` call, the evaluator, and the rest (the loader's
+    samples, stacking)."""
+    counters = eval_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    with eval_timers() as spent, contextlib.redirect_stdout(out):
+        metrics = evaluate.main(list(argv))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    printed = out.getvalue().strip().splitlines()
+    if len(printed) != 1 or \
+            json.loads(printed[0]) != evaluate.strict_json(metrics):
+        raise AssertionError(f"{label}: evaluate printed {printed}, not one "
+                             f"strict-JSON line of its metrics")
+    per_batch = {k: n / batches for k, n in launches.items()}
+    images = sum(shape[0] for shape in spent["shapes"])
+    loop, detect = sum(spent["loop"]), spent["detect"]
+    prepare, evaluator = sum(spent["prepare"]), sum(spent["evaluator"])
+    steady = sorted(detect[1:]) or detect
+    # Between the first and the last Detector call's return, the loop did
+    # every later batch once: its preparation, its Detector call and the
+    # evaluator on the batch before (the first batch carries the warm-up).
+    ends = spent["detect_end"]
+    log("eval", path=label, metrics=json.loads(printed[0]),
+        launches_per_batch=per_batch, batches=len(detect),
+        batch_shapes=sorted(set(spent["shapes"])),
+        images_per_sec=images / loop, loop_s=loop,
+        images_per_sec_after_first_batch=(
+            (images - spent["shapes"][0][0]) / (ends[-1] - ends[0])
+            if len(ends) > 1 else None),
+        prepare_ms_per_batch=prepare / len(detect) * 1e3,
+        detect_ms_per_batch=sum(detect) / len(detect) * 1e3,
+        detect_ms_first=detect[0] * 1e3,
+        detect_ms_steady_median=steady[len(steady) // 2] * 1e3,
+        evaluator_ms_per_batch=evaluator / len(detect) * 1e3,
+        other_ms_per_batch=(loop - prepare - sum(detect) - evaluator)
+        / len(detect) * 1e3)
+    want = {k: expected.get(k, 0) for k in counters}
+    if len(detect) != batches or per_batch != want:
+        raise AssertionError(f"{label}: expected {want} launches per batch "
+                             f"over {batches} batches, got {launches} over "
+                             f"{len(detect)}")
+    if not metrics["AR@100"] > 0:
+        raise AssertionError(f"{label}: no detection matched a shape: "
+                             f"{metrics}")
+    return metrics, per_batch, spent
+
+
+def check_detect(device, artifact, root):
+    """``retinanet_tpu_torch.detect.main`` on three shapes images written
+    as PNG files (two 640×640, one 800×600 that the pipeline shrinks) at
+    batch 2 with score threshold 0.005: 1 B2 launch per batch and no other
+    kernel, detections for each image in the JSON dump, one annotated PNG
+    per image.  Reading and writing the files takes cv2 or PIL, which the
+    card's machine has."""
+    from retinanet_tpu_torch.data.loaders.shapes import Shapes
+
+    paths = []
+    for i, (size, seed) in enumerate((((SIZE, SIZE), 1), ((SIZE, SIZE), 2),
+                                      ((800, 600), 3))):
+        image = next(iter(Shapes(None, 1, size, seed=seed)))["image"]
+        paths.append(str(root / f"detect{i}.png"))
+        if pipeline.cv2 is not None:
+            pipeline.cv2.imwrite(paths[-1], image[..., ::-1])
+        else:
+            pipeline.Image.fromarray(image).save(paths[-1])
+    counters = eval_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    dump, out = str(root / "detect.json"), root / "detect_out"
+    # detect logs every detection; the dump holds them.
+    quiet = logging.getLogger(detect.__name__)
+    level = quiet.level
+    quiet.setLevel(logging.WARNING)
+    try:
+        records = detect.main([*paths, "--from-export", artifact, "--device",
+                               str(device), "--batch-size", "2",
+                               "--score-threshold", "0.005", "--dump-json",
+                               dump, "--out", str(out)])
+    finally:
+        quiet.setLevel(level)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_image = [sum(r["image"] == p for r in records) for p in paths]
+    with open(dump) as f:
+        dumped = json.load(f)
+    written = sorted(q.name for q in out.glob("detect*.det.png"))
+    log("eval-detect", images=len(paths), batches=2, launches=launches,
+        detections_per_image=per_image, annotated=written)
+    if launches != {k: 2 if k == "b2" else 0 for k in counters}:
+        raise AssertionError(f"detect: expected 1 B2 launch per batch and "
+                             f"no other kernel, got {launches}")
+    if dumped != records or min(per_image) == 0 or len(written) != 3 or \
+            not all(math.isfinite(v) for r in records for v in r["box_tlbr"]):
+        raise AssertionError(f"detect: {per_image} detections per image, "
+                             f"{written} written")
+
+
+def check_eval(device):
+    """The evaluation path (``python -m retinanet_tpu_torch.evaluate
+    --from-export``) on the card: each of EVAL_PATHS over the whole set,
+    one batch through the rectangular bucket 640×448 on the kernel path,
+    the kernel path's metrics held to the plain path's, and the kernel
+    path's loop under ``torch.profiler`` (device busy and idle share)."""
+    root = Path(__file__).resolve().parent / "build" / "eval_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    config = Config()
+    config = config.replace(model=dataclasses.replace(
+        config.model, backbone="resnet_50_dense", num_classes=3))
+    names = ["square", "triangle", "circle"]
+    artifact = str(root / "model.npz")
+    export_model(init_params(config, torch.Generator().manual_seed(0), 3),
+                 names, "resnet_50_dense", SIZE, artifact)
+    dataset = ["shapes", str(root / "shapes"), str(EVAL_IMAGES), str(SIZE)]
+    base = ("--dataset", *dataset, "--from-export", artifact,
+            "--batch-size", str(EVAL_BATCH), "--decode-threshold", "0.005",
+            "--device", str(device))
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    metrics, launches = {}, {}
+    for path, (flags, expected) in EVAL_PATHS.items():
+        metrics[path], launches[path], spent = run_eval(
+            path, base + flags, expected, batches)
+        if path == "kernels":
+            served = spent["images"]
+        torch.cuda.empty_cache()
+    flags, expected = EVAL_PATHS["kernels"]
+    _, _, spent = run_eval(
+        f"kernels, bucket {BUCKET[0]}x{BUCKET[1]}",
+        base + flags + ("--buckets", f"{BUCKET[0]}x{BUCKET[1]}",
+                        "--max-images", str(EVAL_BATCH)), expected, 1)
+    if spent["shapes"] != [(EVAL_BATCH, *BUCKET, 3)]:
+        raise AssertionError(f"bucket batch shapes {spent['shapes']}")
+
+    # The kernel path's heads on every batch it served, the bucket's
+    # included, against the float32 plain path's: no farther than the bf16
+    # plain path's (TRAIN_TRUTH_FACTOR/SLACK, the repo's "at least as
+    # accurate" bound), at every level.  At these weights the metrics
+    # cannot tell a wrong kernel from a right one, the heads can.  Elements
+    # outside the JAX fused-vs-unfused bound against the bf16 plain path
+    # are logged beside.
+    def serving_config(extra):
+        return evaluate.build_config(
+            evaluate.build_parser().parse_args(list(base + extra)))
+
+    serving = serving_config(flags)
+    detector = load_exported_detector(artifact, serving, device)
+    plain_config = serving_config(())
+    plain = load_exported_detector(artifact, plain_config, device)
+    f32 = load_exported_detector(artifact, plain_config.replace(
+        model=dataclasses.replace(plain_config.model,
+                                  compute_dtype="float32")), device)
+
+    def less_accurate(got, want, truth):
+        """Each head level's rel. L2 distance to ``truth`` of ``got`` and
+        ``want``, and the levels where ``got`` is the farther."""
+        levels, worse = {}, []
+        for head in ("classifications", "regressions"):
+            for pn in ("P3", "P4", "P5", "P6", "P7"):
+                t = truth[head][pn].float()
+                err = [((v[head][pn].float() - t).norm() / t.norm()).item()
+                       for v in (got, want)]
+                levels[f"{head[0]}{pn}"] = err
+                if err[0] > TRAIN_TRUTH_FACTOR * err[1] + TRAIN_TRUTH_SLACK:
+                    worse.append(f"{head}/{pn}")
+        return levels, worse
+
+    worse = []
+    with torch.inference_mode():
+        for i, images in enumerate(served + spent["images"]):
+            x = torch.as_tensor(images).to(device)
+            got, want, truth = (d.model(x) for d in (detector, plain, f32))
+            share, outside = compare_heads(f"eval-batch-{i}", got, want,
+                                           check=False, log_levels=False)
+            levels, farther = less_accurate(got, want, truth)
+            worse += [f"batch {i} {level}" for level in farther]
+            log("eval-heads", batch=i, shape=list(x.shape),
+                rel_l2_to_float32_kernels_plain=levels,
+                vs_plain_bitwise_equal_share=share,
+                vs_plain_outside_jax_bound=outside)
+        # The same check on the first batch with each EVAL_FAULTS planted.
+        x = torch.as_tensor(served[0]).to(device)
+        want, truth = plain.model(x), f32.model(x)
+        real, missed = resnet.fused_bottleneck, []
+        for fault, plant in EVAL_FAULTS.items():
+            def faulty(*args, _plant=plant, **kwargs):
+                return _plant(real(*args, **kwargs))
+            resnet.fused_bottleneck = faulty
+            try:
+                got = detector.model(x)
+            finally:
+                resnet.fused_bottleneck = real
+            farther = less_accurate(got, want, truth)[1]
+            log("eval-heads-fault", fault=fault, levels_farther=farther)
+            if not farther:
+                missed.append(fault)
+    if worse:
+        raise AssertionError(f"the eval kernel path's heads are less "
+                             f"accurate than the plain path's at {worse}")
+    if missed:
+        raise AssertionError(f"the eval heads check missed the planted "
+                             f"B1 faults {missed}")
+    del plain, f32, served, got, want, truth
+
+    for path in ("kernels", "int8"):
+        gaps = {k: abs(v - metrics["plain"][k])
+                for k, v in metrics[path].items()
+                if isinstance(v, float) and not math.isnan(v)}
+        within = max(gaps.values()) <= EVAL_METRIC_BOUND
+        log("eval-vs-plain", path=path, gaps=gaps, largest=max(gaps.values()),
+            bound=EVAL_METRIC_BOUND if path == "kernels" else None,
+            within=within if path == "kernels" else None)
+        if path == "kernels" and not within:
+            raise AssertionError(f"kernel path metrics {metrics[path]} "
+                                 f"differ from the plain path's "
+                                 f"{metrics['plain']} by more than "
+                                 f"{EVAL_METRIC_BOUND}")
+
+    check_detect(device, artifact, root)
+
+    loader = Inferred("shapes", [str(root / "shapes"),
+                                 str(EVAL_BREAKDOWN_IMAGES), str(SIZE)],
+                      include_crowds=True)
+    log("eval-breakdown", path="kernels", images=EVAL_BREAKDOWN_IMAGES,
+        batch=EVAL_BATCH, **device_breakdown(
+            lambda: evaluate_model(detector, loader, serving)))
+    del detector
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_kernels():
-    """One nvcc per source, all started together."""
+    """One nvcc per source and the host library's g++, all started
+    together."""
     libs = (b1.LIB, b2.LIB, b3.LIB, b4.LIB, b1.PROJ_LIB, b6.LIB, b7.LIB)
 
     def build(lib):
@@ -2531,8 +2877,11 @@ def build_kernels():
         lib.build()
         return time.monotonic() - t
 
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(build, native.LIB)
         seconds = list(pool.map(build, libs))
+        log("build", source=native.LIB.source.name, seconds=host.result(),
+            library=native.LIB.build().name)
     for lib, sec in zip(libs, seconds):
         lines = [ln.strip() for ln in lib.ptxas_log.splitlines()
                  if "registers" in ln or "spill" in ln
@@ -2572,54 +2921,72 @@ def main(argv=()) -> int:
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         nvidia_smi=smi, capability=list(cap))
 
+    ends = {}  # seconds from the start as each phase ended
     if "build" in phases:
         build_kernels()
+        ends["build"] = time.monotonic() - t0
     errs, launches, timing, int8_shapes = {}, {}, {}, {}
     if "checks" in phases or "gn" in phases:
         gn_shapes = record_gn_shapes(device)
+        ends["gn_shapes"] = time.monotonic() - t0
     if "checks" in phases:
         errs["b1"] = check_b1(device)
+        ends["checks_b1"] = time.monotonic() - t0
         b2_mismatches, b2_largest_n = check_b2(device)
         errs["b2"] = float(b2_mismatches)
         errs["b3"] = check_b3(device)
         errs["b4"] = check_b4(device, gn_shapes)
         errs["b5"] = check_b5(device)
         errs["b7"] = check_b7(device)
+        ends["checks"] = time.monotonic() - t0
     if "serving" in phases:
         launches.update(check_flagship(device))
+        ends["serving"] = time.monotonic() - t0
     if "decode" in phases:
         decode_launches = check_decode(device)
+        ends["decode"] = time.monotonic() - t0
+    if "eval" in phases:
+        eval_launches = check_eval(device)
+        ends["eval"] = time.monotonic() - t0
     if "training" in phases:
         launches["b3"] = check_training(device)["b3"]
+        ends["training"] = time.monotonic() - t0
     if "int8" in phases:
         int8_launches, int8_shapes = check_int8_serving(device)
         launches["b6"] = int8_launches["b6"]
         errs["b6"] = check_b6(device, int8_shapes)
+        ends["int8"] = time.monotonic() - t0
     if "parent" in phases:
         if not int8_shapes and (PARENT_DIR / "int8_conv.py").exists():
             int8_shapes = check_int8_serving(device)[1]
         check_parent(device, int8_shapes)
+        ends["parent"] = time.monotonic() - t0
     if "proj" in phases:
         launches["b5"] = check_fused_proj(device)["b5"]
+        ends["proj"] = time.monotonic() - t0
     if "gn" in phases:
         launches["b4"] = check_gn_model(device, gn_shapes)["b4"]
         time_gn_model(device)
+        ends["gn"] = time.monotonic() - t0
     if "entry" in phases:
         entry = drive_entry_points(device)
         launches["b7"] = entry["b7"]
         launches.setdefault("b4", entry["b4"])
+        ends["entry"] = time.monotonic() - t0
     if "timing" in phases:
         timing = time_kernels(device)
         if int8_shapes:
             timing.update(time_new_kernels(device, int8_shapes))
         time_end_to_end(device)
         time_training(device)
+        ends["timing"] = time.monotonic() - t0
     if "breakdown" in phases:
         breakdown(device)
+        ends["breakdown"] = time.monotonic() - t0
     if B128_RATES:
         log_mfu()
     log("done", seconds=time.monotonic() - t0, phases=list(phases),
-        lossy_profile_windows=profiling.lossy_windows)
+        phase_ends_s=ends, lossy_profile_windows=profiling.lossy_windows)
     if phases != PHASES:
         return 0
 
@@ -2639,9 +3006,12 @@ def main(argv=()) -> int:
         "b7": ("gn_relu_maxpool", "stem.cu",
                "retinanet_tpu/ops/pallas/stem.py:94"),
     }
-    extra = {"b2": {"largest_n_checked": b2_largest_n,
-                    "launches_reference_decode_every_candidate":
-                        sum(decode_launches.values())}}
+    extra = {key: {"eval_launches_per_batch": {
+        path: per_batch[key] for path, per_batch in eval_launches.items()}}
+        for key in sources}
+    extra["b2"].update(largest_n_checked=b2_largest_n,
+                       launches_reference_decode_every_candidate=sum(
+                           decode_launches.values()))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"retinanet_tpu_torch/ops/csrc/{src}",

@@ -10,11 +10,14 @@ both read NHWC bytes.
 
 The port imports nothing of the JAX package, nor ``jax``/``flax``: it keeps
 its own copies of what it needs (``config`` for ``Config``,
-``ops.anchors`` for the anchor pyramid), held equal to the originals by
-the CPU tests.  The kernels that replace the Pallas ones live under
-``ops/csrc`` and build with ``nvcc`` at first use.
+``ops.anchors`` for the anchor pyramid, ``data`` and the evaluators, the
+C++ host runtime under ``host``), held equal to the originals by the CPU
+tests.  The kernels that replace the Pallas ones live under ``ops/csrc``
+and build with ``nvcc`` at first use.
 
-Slices ported: serving (``infer``) and the training step (``train``).
+Slices ported: serving (``infer``), the training step (``train``) and
+the evaluation path (``data``, ``eval_coco``, ``eval_voc``, ``export``,
+the ``evaluate`` and ``detect`` CLIs).
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,11 @@
 
 The same frozen dataclasses with the same fields and defaults, so a run of
 the port is described by the same values as a run of the JAX package
-(``tests/test_torch_config.py`` holds them equal field by field).  Left out:
-``ParallelConfig`` (the device mesh; the data-parallel slice brings its own)
-and the CLI parser ``config_from_args`` (the CLI slice).  Comments on what
+(``tests/test_torch_config.py`` holds them equal field by field), and the
+helpers ``_apply_dotted`` and ``parse_buckets`` that the CLIs build a
+config with.  Left out: ``ParallelConfig`` (the device mesh; the
+data-parallel slice brings its own) and the CLI parser
+``config_from_args`` (the CLI slice).  Comments on what
 each field does on the TPU stay with the JAX package.
 """
 
@@ -167,3 +169,21 @@ class Config:
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
+
+
+def _apply_dotted(cfg: Config, dotted: str, value) -> Config:
+    """Return a copy of ``cfg`` with ``section.field`` replaced by ``value``."""
+    section_name, field_name = dotted.split(".", 1)
+    section = getattr(cfg, section_name)
+    section = dataclasses.replace(section, **{field_name: value})
+    return dataclasses.replace(cfg, **{section_name: section})
+
+
+def parse_buckets(specs) -> Tuple[Tuple[int, int], ...]:
+    """Parse ``["640x640", "640x448", ...]`` HxW specs (the --buckets CLI
+    surface, shared by train and evaluate)."""
+    buckets = []
+    for spec in specs:
+        h, w = spec.lower().split("x")
+        buckets.append((int(h), int(w)))
+    return tuple(buckets)

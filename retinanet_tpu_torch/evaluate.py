@@ -1,0 +1,235 @@
+"""Evaluation CLI — mAP over a dataset from a serving artifact (the port of
+``retinanet_tpu/evaluate.py``), on the card unless ``--device`` says
+otherwise.
+
+Usage::
+
+    python -m retinanet_tpu_torch.evaluate --dataset shapes /tmp/shapes 64 640 \
+        --from-export model.npz --batch-size 8 --fused-blocks --fused-res2
+
+The flags are the JAX CLI's, ``--platform`` becoming ``--device``.  Those
+whose port has not landed raise, naming the ROADMAP item that brings them:
+``--experiment``, ``--step`` and ``--average-checkpoints`` (checkpoints,
+A.4); ``--data-parallel``, ``--spatial`` and a multi-process run
+(``torch.distributed``, A.7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import math
+
+from retinanet_tpu_torch.config import Config, _apply_dotted, parse_buckets
+from retinanet_tpu_torch.data.loaders.inferred import Inferred
+from retinanet_tpu_torch.eval_coco import evaluate_model
+
+logger = logging.getLogger(__name__)
+
+CHECKPOINTS = "ROADMAP A.4 (Trainer.fit and CheckpointStore)"
+DISTRIBUTED = "ROADMAP A.7 (torch.distributed)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="mAP of a serving artifact over a dataset")
+    parser.add_argument("--dataset", type=str, nargs="+", required=True)
+    parser.add_argument(
+        "--experiment", type=str, default=None,
+        help=f"experiment checkpoint dir: waits for {CHECKPOINTS}")
+    parser.add_argument(
+        "--from-export", type=str, default=None, metavar="PATH.npz",
+        help="evaluate a single-file serving artifact (an "
+             "retinanet_tpu_export_v1 npz); its class set must match the "
+             "dataset's")
+    parser.add_argument("--scale", type=int, default=None,
+                        help="eval canvas size (default: the export "
+                             "artifact's recorded serving size)")
+    parser.add_argument("--backbone", type=str, default="resnet_50")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument(
+        "--buckets", type=str, nargs="+", default=None, metavar="HxW",
+        help="rectangular canvas buckets, e.g. --buckets 640x640 640x448 "
+             "448x640: each image evaluates on its least-padding bucket, "
+             "batches are bucket-homogeneous")
+    parser.add_argument("--max-images", type=int, default=None)
+    parser.add_argument("--score-threshold", type=float, default=None,
+                        help="post-NMS score filter on reported detections")
+    parser.add_argument(
+        "--decode-threshold", type=float, default=0.05,
+        help="decode validity threshold; mAP integrates the PR curve over "
+             "scores, so keep this low (COCO practice: 0.05)")
+    parser.add_argument("--step", type=int, default=None,
+                        help=f"checkpoint step: waits for {CHECKPOINTS}")
+    parser.add_argument(
+        "--average-checkpoints", type=int, default=None, metavar="N",
+        help=f"mean of the newest N checkpoints: waits for {CHECKPOINTS}")
+    parser.add_argument(
+        "--approx-top-k", action="store_true",
+        help="sets NMSConfig.use_approx_top_k (a TPU unit; the port "
+             "selects candidates with exact top-k)")
+    parser.add_argument(
+        "--approx-global-top-k", action="store_true",
+        help="sets NMSConfig.use_approx_global_top_k (exact on the port)")
+    parser.add_argument("--quantize", type=str, default="none",
+                        choices=["none", "int8"],
+                        help="int8: post-training-quantized serving path "
+                             "(same weights, backbone and FPN convs on "
+                             "kernel B6)")
+    parser.add_argument(
+        "--fused-blocks", action="store_true",
+        help="the dense ResNet's identity blocks res3-res5 on kernel B1")
+    parser.add_argument(
+        "--fused-res2", action="store_true",
+        help="with --fused-blocks: res2's identity blocks on B1 too")
+    parser.add_argument(
+        "--fused-res3-strips", type=int, default=0, metavar="R",
+        help="ModelConfig.fused_res3_strips (sizes TPU VMEM strips; B1 "
+             "computes the same block whatever it says)")
+    parser.add_argument(
+        "--fused-res4-strips", type=int, default=0, metavar="R",
+        help="ModelConfig.fused_res4_strips (as --fused-res3-strips)")
+    parser.add_argument(
+        "--data-parallel", action="store_true",
+        help=f"shard eval batches over the local devices: waits for "
+             f"{DISTRIBUTED}")
+    parser.add_argument(
+        "--spatial", type=int, default=1, metavar="S",
+        help=f"shard image height over S devices: waits for {DISTRIBUTED}")
+    parser.add_argument(
+        "--dump-detections", type=str, default=None, metavar="PATH",
+        help="also write every detection in canonical COCO-results JSON "
+             "([{image_id, category_id, bbox [x,y,w,h], score}])")
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="torch device to serve on (default cuda; 'cpu' runs the "
+             "kernels' plain versions)")
+    parser.add_argument(
+        "--per-class", action="store_true",
+        help="also report per-class AP (COCO: mAP@[.5:.95]; VOC: VOC07)")
+    parser.add_argument(
+        "--protocol", type=str, default="coco", choices=["coco", "voc"],
+        help="evaluation protocol: COCO (mAP@[.5:.95], area ranges, AR) or "
+             "Pascal VOC (AP@0.5 with difficult-GT ignores, VOC07 11-point "
+             "+ VOC12 continuous)")
+    return parser
+
+
+def refuse_unported(args) -> None:
+    """Raise for each flag whose port has not landed, naming its item."""
+    for flag, value in (("--experiment", args.experiment),
+                        ("--step", args.step),
+                        ("--average-checkpoints", args.average_checkpoints)):
+        if value is not None:
+            raise SystemExit(f"{flag} reads experiment checkpoints, which "
+                             f"wait for {CHECKPOINTS}; serve a "
+                             f"--from-export artifact")
+    if args.data_parallel or args.spatial > 1:
+        raise SystemExit(f"--data-parallel/--spatial wait for {DISTRIBUTED}")
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise SystemExit(f"multi-process evaluation waits for {DISTRIBUTED}")
+    if args.from_export is None:
+        raise SystemExit("need --from-export (serving artifact); "
+                         f"--experiment waits for {CHECKPOINTS}")
+
+
+def strict_json(metrics: dict) -> dict:
+    """nan ("no GT in this area bucket") → None, so the record is strict
+    JSON."""
+    return {k: (None if isinstance(v, float) and math.isnan(v) else v)
+            for k, v in metrics.items()}
+
+
+def build_config(args) -> Config:
+    """The serving config of parsed flags; the canvas defaults to the
+    export artifact's, so it evaluates under the geometry it was built
+    for."""
+    from retinanet_tpu_torch.export import read_meta
+
+    scale = args.scale
+    if scale is None:
+        scale = int(read_meta(args.from_export)["image_size"])
+    config = Config()
+    for dotted, value in [
+        ("data.dataset", tuple(args.dataset)),
+        ("data.image_size", scale),
+        ("data.batch_size", args.batch_size),
+        ("model.backbone", args.backbone),
+        ("model.quantize", args.quantize),
+        ("train.experiment", ""),
+        ("nms.score_threshold", args.decode_threshold),
+        ("nms.use_approx_top_k", bool(args.approx_top_k)),
+        ("nms.use_approx_global_top_k", bool(args.approx_global_top_k)),
+        ("model.fused_blocks", bool(args.fused_blocks)),
+        ("model.fused_res2", bool(args.fused_res2)),
+        ("model.fused_res3_strips", args.fused_res3_strips),
+        ("model.fused_res4_strips", args.fused_res4_strips),
+    ]:
+        config = _apply_dotted(config, dotted, value)
+    if args.buckets is not None:
+        config = _apply_dotted(config, "data.buckets",
+                               parse_buckets(args.buckets))
+    return config
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    config = build_config(args)
+
+    from retinanet_tpu_torch.export import load_exported_detector
+
+    # Evaluation mode: crowd annotations become ignore regions (COCO eval
+    # protocol) rather than being dropped (the training behaviour).
+    loader = Inferred(args.dataset[0], args.dataset[1:], include_crowds=True)
+    detector = load_exported_detector(args.from_export, config=config,
+                                      device=args.device)
+    if list(detector.class_names) != list(loader.class_names):
+        # Order matters: class ids are positional.
+        raise SystemExit(
+            f"export classes {detector.class_names} do not match the "
+            f"dataset's {loader.class_names} (same names, same order)")
+
+    sink = None
+    dump: list = []
+    if args.dump_detections:
+        # Contiguous class index -> original COCO category id when the
+        # loader knows it (COCO json); identity otherwise.
+        cat_ids = getattr(loader, "coco_category_ids", None)
+
+        def sink(gt, det):
+            image_id = gt.get("image_id")
+            for (t, l, b, r), score, cls in zip(
+                    det["boxes"], det["scores"], det["class_ids"]):
+                cls = int(cls)
+                dump.append({
+                    "image_id": (int(image_id) if image_id is not None
+                                 else len(dump)),
+                    "category_id": (int(cat_ids[cls]) if cat_ids is not None
+                                    else cls),
+                    "bbox": [float(l), float(t),
+                             float(r - l), float(b - t)],
+                    "score": float(score),
+                })
+
+    metrics = evaluate_model(detector, loader, config,
+                             max_images=args.max_images,
+                             score_threshold=args.score_threshold,
+                             detections_sink=sink,
+                             protocol=args.protocol,
+                             per_class=args.per_class)
+    if args.dump_detections:
+        with open(args.dump_detections, "w") as f:
+            json.dump(dump, f)
+        logger.info("wrote %d detections to %s (COCO-results format)",
+                    len(dump), args.dump_detections)
+    print(json.dumps(strict_json(metrics)), flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,9 @@
 
 Both ``params_from_flax`` (JAX parameters) and ``init_params`` (seeded
 weights) give a ``state_dict`` that serves through ``infer.Detector`` and
-starts training through ``train.create_train_state``.
+starts training through ``train.create_train_state``; ``export_model``
+writes a ``state_dict`` back as an export file that either package serves
+(``load_exported_detector`` here, ``load_exported`` in the JAX package).
 
 Parameters cross from the JAX package through its export format
 (``retinanet_tpu/export.py:export_model``, the ``retinanet_tpu_export_v1``
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +50,56 @@ def params_from_flax(flat: Mapping[str, Union[np.ndarray, Tensor]]
             t = t.permute(3, 2, 0, 1)
         state[path.replace("/", ".")] = t.contiguous()
     return state
+
+
+def flax_from_params(state_dict: Mapping[str, Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_flax``: port state_dict → flat flax
+    params ``{'a/b/kernel': HWIO float32 array}``, in the order of JAX's
+    pytree flattening (keys sorted level by level)."""
+    flat = {}
+    for key in sorted(state_dict, key=lambda k: k.split(".")):
+        t = state_dict[key].detach().to("cpu", torch.float32)
+        if key.rsplit(".", 1)[-1] == "kernel":
+            t = t.permute(2, 3, 1, 0)
+        flat[key.replace(".", "/")] = t.contiguous().numpy()
+    return flat
+
+
+def export_model(state_dict: Mapping[str, Tensor], class_names: List[str],
+                 backbone: str, image_size: int, path: str,
+                 dtype: str = "float32") -> int:
+    """Write params + metadata as one ``retinanet_tpu_export_v1`` npz (the
+    JAX package's ``export_model``, from a port state_dict); returns the
+    leaf count.
+
+    ``dtype="bfloat16"`` stores the float leaves as bf16 bit patterns
+    (uint16, rounded to nearest even as ``ml_dtypes`` rounds) and lists
+    them in the meta's ``bf16_leaves``; loading restores float32.  The
+    file always lands at a ``.npz`` path.
+    """
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown export dtype {dtype!r}")
+    if not path.endswith(".npz"):
+        path += ".npz"
+    arrays: Dict[str, np.ndarray] = {}
+    bf16_leaves: List[str] = []
+    for name, value in flax_from_params(state_dict).items():
+        if dtype == "bfloat16":
+            bf16_leaves.append(name)
+            value = torch.from_numpy(value).to(torch.bfloat16).view(
+                torch.int16).numpy().view(np.uint16)
+        arrays[name] = value
+    meta = {"format": EXPORT_FORMAT,
+            "backbone": backbone,
+            "image_size": int(image_size),
+            "dtype": dtype,
+            "bf16_leaves": bf16_leaves,
+            "class_names": list(class_names)}
+    count = len(arrays)
+    arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(path, **arrays)
+    return count
 
 
 def read_meta(path: str) -> dict:
@@ -105,3 +157,13 @@ def init_params(config: Config, generator: torch.Generator,
                 module.gamma.fill_(1.0)
                 module.beta.fill_(0.0)
     return model.state_dict()
+
+
+def load_exported_detector(path: str, config: Optional[Config] = None,
+                           device: Union[str, torch.device] = "cuda"):
+    """A ready ``infer.Detector`` from an export file, on the card unless
+    the caller passes another device.  ``config`` (optional) sets the
+    serving knobs (NMS thresholds, batch size, quantize, fused blocks);
+    backbone and classes always come from the export."""
+    from retinanet_tpu_torch.infer import Detector  # infer imports this
+    return Detector.from_export(path, config=config, device=device)

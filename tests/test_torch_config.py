@@ -71,3 +71,25 @@ def test_anchor_pyramid_matches_jax(size):
     assert a.dtype == b.dtype == np.float32
     np.testing.assert_array_equal(a, b)
     assert tanchors.image_hw(size) == janchors.image_hw(size)
+
+
+@pytest.mark.parametrize("dotted,value", [
+    ("data.image_size", 320), ("model.fused_blocks", True),
+    ("nms.score_threshold", 0.005), ("data.buckets", ((640, 448),)),
+    ("data.dataset", ("shapes", "/tmp/s", "64", "640"))])
+def test_apply_dotted_matches_jax(dotted, value):
+    """The CLIs' config helper replaces the same field in both packages and
+    leaves every other section as it was."""
+    got = tcfg._apply_dotted(tcfg.Config(), dotted, value)
+    want = jcfg._apply_dotted(jcfg.Config(), dotted, value)
+    for f in dataclasses.fields(tcfg.Config):
+        assert dataclasses.asdict(getattr(got, f.name)) == \
+            dataclasses.asdict(getattr(want, f.name)), f.name
+    with pytest.raises(TypeError):
+        tcfg._apply_dotted(tcfg.Config(), "data.no_such_field", 1)
+
+
+@pytest.mark.parametrize("specs", [["640x640"],
+                                   ["640x448", "448X640", "64x48"]])
+def test_parse_buckets_matches_jax(specs):
+    assert tcfg.parse_buckets(specs) == jcfg.parse_buckets(specs)

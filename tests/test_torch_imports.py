@@ -86,8 +86,48 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "optax", "retinanet_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
-assert "retinanet_tpu_torch.train" in names, names
+for name in ("train", "evaluate", "detect", "export", "native", "eval_coco",
+             "eval_voc", "data.pipeline", "data.stats", "data.loaders.coco",
+             "data.loaders.pascal", "data.loaders.shapes",
+             "data.loaders.inferred", "utils.draw"):
+    assert "retinanet_tpu_torch." + name in names, (name, names)
 print(len(names))
+"""
+
+
+# The evaluation path's host side on a machine without JAX, cv2 or PIL, as
+# the card's: shapes samples through ``evaluate_model`` on the native path
+# (a stand-in detector), while reading an image file raises by name.
+_NO_CODECS = r"""
+import sys
+for name in ("jax", "flax", "optax", "retinanet_tpu", "cv2", "PIL"):
+    sys.modules[name] = None
+import numpy as np
+from retinanet_tpu_torch.config import Config
+from retinanet_tpu_torch.data import pipeline
+from retinanet_tpu_torch.data.loaders.inferred import Inferred
+from retinanet_tpu_torch.eval_coco import evaluate_model
+
+class Empty:
+    def detect(self, images, scales=None):
+        assert images.shape == (2, 64, 64, 3) and images.dtype == np.float32
+        return [{"boxes": np.zeros((0, 4), np.float32),
+                 "scores": np.zeros(0, np.float32),
+                 "class_ids": np.zeros(0, np.int32)}] * len(images)
+
+config = Config()
+config = config.replace(data=config.data.__class__(image_size=64,
+                                                   batch_size=2))
+metrics = evaluate_model(Empty(), Inferred("shapes", ["x", "3", "64"],
+                                           include_crowds=True), config)
+assert metrics["mAP"] == 0.0, metrics
+try:
+    pipeline._imread("missing.png")
+except RuntimeError as err:
+    assert "cv2 or PIL" in str(err), err
+else:
+    raise AssertionError("_imread read without a decoder")
+print("ok")
 """
 
 
@@ -108,6 +148,12 @@ def test_every_port_module_imports_without_the_jax_package():
     proc = _run(_WALK)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_eval_host_path_runs_without_image_codecs():
+    proc = _run(_NO_CODECS)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
 
 
 def test_kernel_argtypes_match_the_c_signatures():
