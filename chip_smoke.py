@@ -113,10 +113,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    the ``Detector`` call and the evaluator; ``retinanet_tpu_torch.detect``
    on three PNG files (1 B2 launch per batch, detections and annotated
    images); the kernel path's loop over 16 images under
-   ``torch.profiler`` (device busy, idle share).
+   ``torch.profiler`` (device busy, idle share);
+15. fit (last): the training loop as a user drives it
+   (``train.parse_args`` and ``Trainer.fit``, what ``train.main`` does,
+   with a checkpoint every 100 steps) on the JAX package's shapes-200
+   convergence setup at 320 px (FIT_*): the kernel path
+   (``--fused-train``) and the plain path, each in a spawned process of
+   its own, 1000 steps in two invocations with a resume between; gates:
+   12 B1 + 12 B3 launches a step on the kernel path and none on the
+   plain, the logged restore, the checkpoints kept, finite losses, the
+   data loss below half of step 1's, the profile trace; then each path's
+   last checkpoint through ``evaluate.load_detector`` on 64 held-out
+   shapes images on its own serving path: AP50 ≥ 0.5 each, the mAPs
+   within 0.05, the kernel path's model with every GroupNorm on B4
+   within 0.02, int8's mAP logged; ``evaluate --experiment`` equal to
+   ``export --experiment`` + ``evaluate --from-export``, ``detect
+   --experiment --step`` on two PNG files (1 B2 launch), and
+   ``Trainer.write_image_summaries`` (24 PNGs).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
-entry,serving,decode,eval,training,timing,breakdown``) and prints no result
+entry,serving,decode,eval,training,timing,breakdown,fit``) and prints no result
 lines: for a first call after a kernel change.  ``--phases parent`` (not
 in the default run) compares kernels with a parent commit's, each whose
 module is in ``parent_kernels/`` (git-ignored): B1 and B5
@@ -142,6 +158,7 @@ import io
 import json
 import logging
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -151,7 +168,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from retinanet_tpu_torch import detect, evaluate, native
+from retinanet_tpu_torch import detect, evaluate, native, train
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.data import pipeline
 from retinanet_tpu_torch.data.loaders.inferred import Inferred
@@ -175,8 +192,10 @@ from retinanet_tpu_torch.ops import int8_conv as b6
 from retinanet_tpu_torch.ops import nms as b2
 from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
-from retinanet_tpu_torch.train import (benchmark_train, create_train_state,
-                                       make_train_step, synthetic_batch)
+from retinanet_tpu_torch.train import (benchmark_train,
+                                       benchmark_train_pipeline,
+                                       create_train_state, make_train_step,
+                                       synthetic_batch)
 from retinanet_tpu_torch.utils import profiling
 from retinanet_tpu_torch.utils.profiling import (device_breakdown, group_of,
                                                  kernel_launches,
@@ -191,11 +210,19 @@ STAGES = (("res2", 160, 160, 256, 64, 2), ("res3", 80, 80, 512, 128, 3),
 BUCKET = (SIZE, SIZE * 7 // 10)
 BUCKET_STAGES = tuple((name, h, w * 7 // 10, c, f, count)
                       for name, h, w, c, f, count in STAGES)
-# B1 bound: |Δ| ≤ 2⁻⁵·max(1, |ref|) per element and mean |Δ| ≤ 1e-3.  Both
-# versions round every conv to bf16 but sum it in another fp32 order, so
-# elements may sit one bf16 step apart and GN carries the step through.
+# B1 bound: |Δ| ≤ 2⁻⁵·max(1, |ref|, |n3|) per element, n3 the plain
+# version's GN3 output there, and mean |Δ| ≤ 1e-3.  Both versions round
+# every conv to bf16 but sum it in another fp32 order, so a conv output
+# may sit one bf16 step apart and GN3 carries the step to n3; the residual
+# add keeps it whole where x cancels n3, so the step is n3's (at
+# [16,40,40,512] an element with n3 ≈ 1.9 and x ≈ −0.86 read 0.035 at
+# |ref| ≈ 1).  Against the float64 version of the block, B1's max error at
+# most B1_TRUTH_FACTOR × the plain version's + B1_TRUTH_SLACK; and B1's
+# output bitwise the plain epilogue (GN3 affine, residual add, relu) of
+# its own forward.
 B1_REL = 2.0 ** -5
 B1_MEAN = 1e-3
+B1_TRUTH_FACTOR, B1_TRUTH_SLACK = 1.2, 5e-3
 # Head outputs of the kernel path vs the unfused plain path: the JAX
 # package's own fused-vs-unfused backbone bound (test_pallas_bottleneck).
 HEAD_RTOL, HEAD_ATOL = 5e-2, 1e-1
@@ -291,7 +318,7 @@ STEM = (320, 320, 64)
 # than the host takes to enqueue the timed calls.
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
-          "decode", "eval", "training", "timing", "breakdown")
+          "decode", "eval", "training", "timing", "breakdown", "fit")
 # The eval phase: ``evaluate.main`` on a 640-px shapes set of EVAL_IMAGES
 # images at batch EVAL_BATCH, from an export of seeded ``init_params``
 # weights (resnet_50_dense, the three shapes classes), on each path: its
@@ -320,6 +347,56 @@ EVAL_FAULTS = {
     "rows_shifted": lambda y: y.roll(1, 2),  # NCHW, channels_last
     "scaled": lambda y: y * 1.1,
 }
+# The fit phase: the port's training loop (``train.Trainer.fit``) and the
+# CLIs that read its checkpoints, on the JAX package's shapes-200
+# convergence setup (NOTES.md, "Flagship convergence @640": resnet_50_dense,
+# b16, momentum SGD at lr 1e-2, dropout 0, bce+dice) at half its canvas:
+# FIT_IMAGES shapes images at FIT_SIZE px, seed FIT_SEED.  Each path trains
+# FIT_STEPS steps, in a process of its own (``train_fit_paths``), in two
+# invocations of half as many (epochs of
+# FIT_EPOCH_STEPS of the 12 batches an epoch holds; the second resumes
+# from the first's last checkpoint and restarts at epoch 0, as JAX's
+# does), logging every FIT_LOG_EVERY steps, a checkpoint every
+# FIT_CHECKPOINT_EVERY of which FIT_KEEP stay; the kernel path's first
+# invocation traces FIT_PROFILE steps.  Gates: the mean data loss
+# (class_loss + regr_loss: total_loss holds an L2 term of ~2.7 that 400
+# steps of weight decay hardly move) of the last 5 logged steps below
+# FIT_LOSS_FALL × step 1's; every logged loss finite; on FIT_EVAL_IMAGES
+# held-out images (seed FIT_EVAL_SEED) each path's last checkpoint, served
+# on its own path (FIT_SERVE), reaches AP50 ≥ FIT_AP50_FLOOR, the two
+# mAPs lie within FIT_MAP_GAP, and the kernel path's model with every
+# GroupNorm on B4 within FIT_B4_GAP of it.  At 400 steps the held-out mAP
+# still climbs fast and two seeds of the plain path end 0.11 apart; from
+# ~500 steps on it holds at 0.45-0.53 (PERF.md §6), hence FIT_STEPS.  The
+# two paths from one seed part by up to 0.06 mAP (seeds 42-44, the
+# ``spread`` phase), on 64 held-out images as on 512 or 1024, and served
+# from the last checkpoint as from the mean of the last 3: the noise lies
+# in the trained models, not in the images, and the one-seed gate fails
+# without a fault for about one seed in three (PERF.md §7).  Each run also
+# logs both paths' mAP on FIT_WIDE_EVAL_IMAGES held-out images, ungated.
+FIT_IMAGES, FIT_SIZE, FIT_BATCH, FIT_SEED = 200, 320, 16, 42
+FIT_STEPS, FIT_EPOCH_STEPS, FIT_LOG_EVERY = 1000, 10, 10
+FIT_PROCESS_TIMEOUT = 900  # seconds for both of a path's invocations
+FIT_CHECKPOINT_EVERY, FIT_KEEP, FIT_PROFILE = 100, 3, 3
+FIT_PATHS = {"kernels": ("--fused-train",), "plain": ()}
+FIT_SERVE = {"kernels": ("--fused-blocks", "--fused-res2"), "plain": ()}
+FIT_CLASSES = 3  # the shapes set's square, triangle and circle
+FIT_LOSS_FALL = 0.5
+FIT_EVAL_IMAGES, FIT_WIDE_EVAL_IMAGES, FIT_EVAL_SEED = 64, 512, 7
+FIT_SURFACE_IMAGES = 64  # the training images evaluate/detect/export read
+FIT_AVERAGE = FIT_KEEP  # checkpoints the spread phase also serves averaged
+FIT_AP50_FLOOR, FIT_MAP_GAP, FIT_B4_GAP = 0.5, 0.05, 0.02
+# (H, W, C, F) of the 12 identity blocks at FIT_SIZE px, with their counts:
+# the fit phase trains and serves them at FIT_BATCH.
+FIT_STAGES = tuple((name, h * FIT_SIZE // SIZE, w * FIT_SIZE // SIZE, c, f,
+                    count) for name, h, w, c, f, count in STAGES)
+# Run only when asked for (``--phases build,spread``): both fit paths
+# trained from each of SPREAD_SEEDS as the fit phase trains them, and each
+# model's held-out mAP, served from its last checkpoint and as the mean of
+# its newest FIT_AVERAGE, on the first n held-out images for each n of
+# SPREAD_EVAL_IMAGES, with every pairwise gap: the noise the FIT_MAP_GAP
+# bound must sit above.
+SPREAD_SEEDS, SPREAD_EVAL_IMAGES = (42, 43, 44), (64, 512)
 # Run only when asked for (``--phases parent``): the parent commit's B1, B5
 # and B6 sources, placed in PARENT_DIR, against this tree's on the card.
 PARENT_DIR = Path(__file__).resolve().parent / "parent_kernels"
@@ -440,11 +517,13 @@ def forward_diff(a, b):
 
 def check_b1(device) -> float:
     """B1 vs plain at every stage shape, at batch 2 and at the flagship
-    run's batch 8, and at batch 8 at the eval phase's bucket shapes; 4
-    kernels per call at res2, batch 8."""
+    run's batch 8, at batch 8 at the eval phase's bucket shapes, and at
+    the fit phase's stage shapes and batch; 4 kernels per call at res2,
+    batch 8."""
     gen = torch.Generator().manual_seed(1)
     worst = 0.0
-    for batch, stages in ((2, STAGES), (8, STAGES + BUCKET_STAGES)):
+    for batch, stages in ((2, STAGES), (8, STAGES + BUCKET_STAGES),
+                          (FIT_BATCH, FIT_STAGES)):
         for name, h, w, c, f, _ in stages:
             x, params = block_inputs(batch, h, w, c, f, gen, device)
             if (name, batch, w) == ("res2", 8, h):
@@ -453,22 +532,41 @@ def check_b1(device) -> float:
                     lambda: b1.fused_bottleneck(x, *params, weights=wts)),
                     "b1_fused_bottleneck")
             ref = b1.fused_bottleneck_plain(x, *params).float()
+            n3 = b1._residual_branch(x.permute(0, 3, 1, 2), *params, 1e-5)
+            n3 = n3.permute(0, 2, 3, 1).float()
             out = b1.fused_bottleneck(x, *params)
-            again = b1.fused_bottleneck(x, *params)
+            again, fwd = b1.fused_bottleneck(x, *params, return_forward=True)
+            gb = params[1:3] + params[4:6] + params[7:9]
+            epilogue = torch.relu(b3.relu_inputs(x, fwd, *gb)[2])
+            truth = torch.relu(b3.relu_inputs(x, b3.recompute_forward(
+                x, *params, dtype=torch.float64), *gb)[2]).view(out.shape)
             torch.cuda.synchronize()
             err = (out.float() - ref).abs()
-            bound = B1_REL * ref.abs().clamp(min=1.0)
+            bound = B1_REL * torch.maximum(ref.abs(), n3.abs()).clamp(min=1.0)
+            truth_err = [(t.double() - truth).abs().max().item()
+                         for t in (out, ref)]
+            checks = dict(
+                within_bound=not (err > bound).any().item(),
+                mean=err.mean().item() <= B1_MEAN,
+                as_accurate=truth_err[0] <= B1_TRUTH_FACTOR * truth_err[1]
+                + B1_TRUTH_SLACK,
+                own_epilogue=bool(torch.equal(out, epilogue.view(
+                    out.shape))),
+                bitwise_repeat=bool(torch.equal(out, again)))
             log("b1-check", stage=name, shape=[batch, h, w, c], F=f,
                 max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
                 over_bound=int((err > bound).sum().item()),
-                bitwise_repeat=bool(torch.equal(out, again)))
-            if (err > bound).any() or err.mean().item() > B1_MEAN:
+                over_output_step=int((err > B1_REL * ref.abs().clamp(
+                    min=1.0)).sum().item()),
+                f64_max_err_kernel_plain=truth_err, **checks)
+            if not all(checks.values()):
                 raise AssertionError(f"B1 disagrees with its plain version "
-                                     f"at {name} {h}x{w}, batch {batch}")
-            if not torch.equal(out, again):
-                raise AssertionError(f"B1 is not bitwise repeatable at "
-                                     f"{name} {h}x{w}, batch {batch}")
+                                     f"at {name} {h}x{w}, batch {batch}: "
+                                     f"{checks}")
             worst = max(worst, err.max().item())
+            del x, params, ref, n3, out, again, fwd, epilogue, truth, err
+            del bound
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -493,12 +591,14 @@ def pearson(a, b) -> float:
 
 def check_b3(device) -> float:
     """B3 vs its plain version on the kernel's forward, on its own
-    recompute and in float64 at every stage shape; returns the worst
-    max |Δ| of dx against the plain version on the kernel's forward."""
+    recompute and in float64 at every stage shape, at batch 2 and 8, and
+    at the fit phase's stage shapes and batch; returns the worst max |Δ|
+    of dx against the plain version on the kernel's forward."""
     gen = torch.Generator().manual_seed(5)
     worst = 0.0
-    for batch in (2, 8):
-        for name, h, w, c, f, _ in STAGES:
+    for batch, stages in ((2, STAGES), (8, STAGES),
+                          (FIT_BATCH, FIT_STAGES)):
+        for name, h, w, c, f, _ in stages:
             x, params = block_inputs(batch, h, w, c, f, gen, device)
             dout = torch.randn(batch, h, w, c, generator=gen).to(
                 torch.bfloat16).to(device)
@@ -567,28 +667,32 @@ def check_b3(device) -> float:
 
 
 def record_gn_shapes(device):
-    """The GroupNorm inputs of one forward of each path the in-model B4
-    A/B runs, at batch 8 (forward hooks): bf16 serving on the kernel path
-    and on the int8 path (every block eager), and the kernel path's
-    training forward.  Logs each distinct (H, W, C, activation, dtype)
-    with its calls per forward and whether it passes the 2^18 gate;
-    returns {path: {shape: calls per forward}}."""
-    images = torch.randn(8, SIZE, SIZE, 3,
-                         generator=torch.Generator().manual_seed(3)
-                         ).to(device)
+    """The GroupNorm inputs of one forward of each path a B4 A/B runs
+    (forward hooks): at batch 8, bf16 serving on the kernel path and on
+    the int8 path (every block eager), and the kernel path's training
+    forward; the fit phase's served kernel-path model at its size and
+    batch.  Logs each distinct (B, H, W, C, activation, dtype) with its
+    calls per forward and whether it passes the 2^18 gate; returns
+    {path: {shape: calls per forward}}."""
     found = {}
-    for path, config, training in (("kernels", flagship_config(), False),
-                                   ("int8", int8_config(), False),
-                                   ("train", train_config(), True)):
-        model = RetinaNet.from_config(config.model, 9, 80)
+    for path, config, training, classes in (
+            ("kernels", flagship_config(), False, 80),
+            ("int8", int8_config(), False, 80),
+            ("train", train_config(), True, 80),
+            ("fit", fit_serving_config("kernels"), False, FIT_CLASSES)):
+        size, batch = config.data.image_size, config.data.batch_size
+        images = torch.randn(batch, size, size, 3,
+                             generator=torch.Generator().manual_seed(3)
+                             ).to(device)
+        model = RetinaNet.from_config(config.model, 9, classes)
         model.load_state_dict(init_params(
-            config, torch.Generator().manual_seed(0), 80))
+            config, torch.Generator().manual_seed(0), classes))
         model.to(device).eval()
         shapes = found[path] = {}
 
         def record(module, inputs, _shapes=shapes):
             n, c, h, w = inputs[0].shape
-            key = (h, w, c, module.activation, inputs[0].dtype)
+            key = (n, h, w, c, module.activation, inputs[0].dtype)
             _shapes[key] = _shapes.get(key, 0) + 1
 
         hooks = [m.register_forward_pre_hook(record)
@@ -597,12 +701,12 @@ def record_gn_shapes(device):
             model(images, training=training)
         for hook in hooks:
             hook.remove()
-        for (h, w, c, act, dtype), n in sorted(shapes.items(),
-                                               key=lambda kv: str(kv[0])):
-            log("gn-shapes", path=path, shape=[8, h, w, c], activation=act,
+        for (b, h, w, c, act, dtype), n in sorted(
+                shapes.items(), key=lambda kv: str(kv[0])):
+            log("gn-shapes", path=path, shape=[b, h, w, c], activation=act,
                 dtype=str(dtype), calls_per_forward=n,
                 takes_b4=h * w * c >= GN_KERNEL_MIN_ELEMENTS)
-        del model
+        del model, images
     torch.cuda.empty_cache()
     return found
 
@@ -618,19 +722,19 @@ def b4_paths(h, w, c, dtype):
 def check_b4(device, gn_shapes) -> float:
     """B4 vs its plain version, each path the shape allows, at every
     GroupNorm shape of ``gn_shapes`` (``record_gn_shapes``) that passes the
-    gate and at B4_EXTRA, batch 8, in bf16 and fp32: within B4_REL and
-    bitwise repeatable; B4_PATH_KERNELS kernels per call on each path; its
-    backward vs autograd of the plain forward at P3 in fp32.  Returns the
-    worst max |Δ| of the forward."""
+    gate, at its batch, and at B4_EXTRA, batch 8, in bf16 and fp32: within
+    B4_REL and bitwise repeatable; B4_PATH_KERNELS kernels per call on
+    each path; its backward vs autograd of the plain forward at P3 in
+    fp32.  Returns the worst max |Δ| of the forward."""
     gen = torch.Generator().manual_seed(6)
-    shapes = {(h, w, c, act) for found in gn_shapes.values()
-              for h, w, c, act, _ in found
+    shapes = {(b, h, w, c, act) for found in gn_shapes.values()
+              for b, h, w, c, act, _ in found
               if h * w * c >= GN_KERNEL_MIN_ELEMENTS}
-    shapes = sorted(shapes | set(B4_EXTRA), key=str)
+    shapes = sorted(shapes | {(8, *extra) for extra in B4_EXTRA}, key=str)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for h, w, c, act in shapes:
-            x = (2 * torch.randn(8, h, w, c, generator=gen) + 0.5).to(dtype)
+        for n, h, w, c, act in shapes:
+            x = (2 * torch.randn(n, h, w, c, generator=gen) + 0.5).to(dtype)
             gamma, beta = gn_affine(c, gen)
             x, gamma, beta = x.to(device), gamma.to(device), beta.to(device)
             groups = resolve_groups(c)
@@ -647,9 +751,9 @@ def check_b4(device, gn_shapes) -> float:
                     over = int((err > B4_REL[dtype] * ref.abs().clamp(
                         min=1.0)).sum().item())
                     repeat = bool(torch.equal(out, again))
-                    log("b4-check", shape=[8, h, w, c], activation=act,
+                    log("b4-check", shape=[n, h, w, c], activation=act,
                         dtype=str(dtype), path=path,
-                        default_path=b4.kernel_path(8, h * w, c, groups,
+                        default_path=b4.kernel_path(n, h * w, c, groups,
                                                     dtype),
                         max_abs_err=err.max().item(),
                         mean_abs_err=err.mean().item(),
@@ -663,10 +767,11 @@ def check_b4(device, gn_shapes) -> float:
                     del out, again
             del x, ref
     # Kernels per call, each path and dtype, over every shape at batch 2.
+    planes = sorted({shape[1:] for shape in shapes}, key=str)
     for dtype in (torch.bfloat16, torch.float32):
         for path in b4.PATHS:
             cases = []
-            for h, w, c, act in shapes:
+            for h, w, c, act in planes:
                 if path not in b4_paths(h, w, c, dtype):
                     continue
                 x = torch.randn(2, h, w, c, generator=gen).to(dtype)
@@ -833,6 +938,39 @@ def int8_config(batch: int = 8) -> Config:
         config.model, quantize="int8", fused_proj=True))
 
 
+def int8_shape_hooks(model, shapes):
+    """Forward hooks on every quantized conv of ``model`` that count its
+    (B, H, W, C, F, k, stride) in ``shapes``; returns the hooks."""
+    def record(module, inputs, output):
+        b, c, h, w = inputs[0].shape
+        key = (b, h, w, c, module.kernel.shape[0], module.kernel_size,
+               module.strides)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    return [m.register_forward_hook(record) for m in model.modules()
+            if isinstance(m, Conv) and m.quantize]
+
+
+def fit_int8_shapes(device):
+    """The distinct int8 conv shapes, with their counts, of one forward
+    of the fit phase's int8 serving model (FIT_SIZE px, FIT_BATCH) on
+    seeded weights."""
+    config = fit_serving_config("kernels", quantize=True)
+    detector = Detector(config, init_params(
+        config, torch.Generator().manual_seed(0), FIT_CLASSES),
+        [str(i) for i in range(FIT_CLASSES)], device)
+    shapes = {}
+    hooks = int8_shape_hooks(detector.model, shapes)
+    detector(torch.randn(FIT_BATCH, FIT_SIZE, FIT_SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device))
+    for hook in hooks:
+        hook.remove()
+    del detector
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def check_int8_serving(device):
     """int8 serving through ``Detector`` at batch 8, counted: one B6 launch
     per quantized conv (the 52 block convs of the backbone, the stem
@@ -849,14 +987,7 @@ def check_int8_serving(device):
     convs = {name: m for name, m in detector.model.named_modules()
              if isinstance(m, Conv) and m.quantize}
     shapes = {}
-
-    def record(module, inputs, output):
-        b, c, h, w = inputs[0].shape
-        key = (b, h, w, c, module.kernel.shape[0], module.kernel_size,
-               module.strides)
-        shapes[key] = shapes.get(key, 0) + 1
-
-    hooks = [m.register_forward_hook(record) for m in convs.values()]
+    hooks = int8_shape_hooks(detector.model, shapes)
     # The main path, counted: one int8 serving batch.
     b1.fused_bottleneck.launches = 0
     b1.fused_bottleneck_proj.launches = 0
@@ -947,9 +1078,10 @@ def int8_case(key, gen, device):
 
 
 def check_b6(device, shapes) -> float:
-    """B6 vs its plain version at every distinct int8 conv shape of the
-    640-px flagship at batch 8 (bitwise equal and repeatable), at odd
-    sides, fp32 in and out, and through ``int8_conv3x3``."""
+    """B6 vs its plain version at every distinct int8 conv shape of
+    ``shapes`` (the 640-px flagship at batch 8, the fit phase's model;
+    bitwise equal and repeatable), at odd sides, fp32 in and out, and
+    through ``int8_conv3x3``."""
     gen = torch.Generator().manual_seed(9)
     for key, count in sorted(shapes.items()):
         x, kernel = int8_case(key, gen, device)
@@ -1426,7 +1558,7 @@ def check_gn_model(device, gn_shapes):
     images = torch.randn(8, SIZE, SIZE, 3,
                          generator=torch.Generator().manual_seed(3)
                          ).to(device)
-    gated = sum(n for (h, w, c, _, _), n in gn_shapes["kernels"].items()
+    gated = sum(n for (_, h, w, c, _, _), n in gn_shapes["kernels"].items()
                 if h * w * c >= GN_KERNEL_MIN_ELEMENTS)
     # The main path, counted: one serving batch with B4 in the model.
     b1.fused_bottleneck.launches = 0
@@ -2316,6 +2448,26 @@ def time_training(device):
             torch.cuda.empty_cache()
 
 
+def time_train_pipeline(device):
+    """The kernel path's training step at the fit phase's size and batch,
+    fed by the live host pipeline (``benchmark_train_pipeline``: shapes
+    images drawn, augmented and padded on host threads, uint8 batches
+    copied on a side stream one step ahead) and, for the host's share, by
+    one batch kept on the card (``benchmark_train``)."""
+    config = train_config(FIT_BATCH)
+    config = config.replace(data=dataclasses.replace(
+        config.data, image_size=FIT_SIZE))
+    for feed, bench in (("pipeline", benchmark_train_pipeline),
+                        ("device batch", benchmark_train),
+                        ("pipeline", benchmark_train_pipeline)):
+        r = bench(config, batch_size=FIT_BATCH, steps=20, warmup=3,
+                  num_classes=FIT_CLASSES, device=device)
+        log("train-pipeline-time", feed=feed, batch=FIT_BATCH,
+            image_size=FIT_SIZE, step_ms=r["step_ms"],
+            images_per_sec=r["images_per_sec"])
+        torch.cuda.empty_cache()
+
+
 def breakdown(device):
     """Device time by kernel group, idle share and kernels per call:
     serving through ``Detector`` at batch 8 and 128 (kernel, int8 and
@@ -2867,6 +3019,430 @@ def check_eval(device):
     return launches
 
 
+def fit_argv(path, root, device, seed=FIT_SEED, profile=0):
+    """The training CLI's flags of one invocation of a fit path: the
+    setup of the FIT_* constants, FIT_STEPS // 2 steps."""
+    return ["--dataset", "shapes", str(root / "shapes"), str(FIT_IMAGES),
+            str(FIT_SIZE), "--experiment", str(root / f"{path}_seed{seed}"),
+            "--backbone", "resnet_50_dense", "--scale", str(FIT_SIZE),
+            "--batch-size", str(FIT_BATCH), "--optimizer", "momentum",
+            "--learning-rate", "1e-2", "--dropout", "0", "--class-loss",
+            "bce", "dice", "--seed", str(seed), "--log-every",
+            str(FIT_LOG_EVERY), "--epochs",
+            str(FIT_STEPS // 2 // FIT_EPOCH_STEPS), "--steps-per-epoch",
+            str(FIT_EPOCH_STEPS), "--device", str(device),
+            *FIT_PATHS[path], *(("--profile", str(profile)) if profile
+                                else ())]
+
+
+class LogCapture(logging.Handler):
+    """The messages of one logger at INFO, while in a ``with`` block."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.logger, self.messages = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def run_fit(argv):
+    """What ``train.main(argv)`` does (``parse_args``, then
+    ``Trainer(config, device).fit()``), with FIT_CHECKPOINT_EVERY and
+    FIT_KEEP, for which the CLI has no flag (nor has the JAX package's).
+    Every launch count is set to 0 just before and read just after: the
+    Trainer's construction and ``fit``, which runs the training steps and
+    writes checkpoints, metrics and the profile, and nothing else."""
+    config, device = train.parse_args(argv)
+    config = config.replace(train=dataclasses.replace(
+        config.train, checkpoint_every=FIT_CHECKPOINT_EVERY,
+        keep_checkpoints=FIT_KEEP))
+    counters = eval_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.monotonic()
+    with LogCapture(train.__name__) as messages:
+        state = train.Trainer(config, device=device).fit()
+    torch.cuda.synchronize()
+    return (state, {k: fn.launches for k, fn in counters.items()},
+            messages, time.monotonic() - t)
+
+
+def fit_path_runs(path, root, device, seed, queue):
+    """A spawned process's work: both invocations of one fit path in a
+    fresh experiment, FIT_STEPS // 2 steps from seeded weights, then as
+    many again resuming from the first's last checkpoint (``run_fit``).
+    Puts (path, seed, [(step, launches, log messages, seconds)], None) in
+    ``queue``, or (path, seed, None, the traceback)."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(root / f"{path}_seed{seed}", ignore_errors=True)
+        runs = []
+        for profile in (FIT_PROFILE if path == "kernels" else 0, 0):
+            state, launches, messages, seconds = run_fit(
+                fit_argv(path, root, device, seed, profile))
+            runs.append((int(state.step), launches, messages, seconds))
+            del state
+            torch.cuda.empty_cache()
+    except BaseException:
+        import traceback
+        queue.put((path, seed, None, traceback.format_exc()))
+        raise
+    queue.put((path, seed, runs, None))
+
+
+def train_fit_paths(root, device,
+                    jobs=tuple((path, FIT_SEED) for path in FIT_PATHS)):
+    """The fit paths of ``jobs`` ((path, seed) pairs) at once, each in a
+    spawned process of its own: a step keeps the card busy a fraction of
+    its time (the host launches ~8000 kernels), so two or three processes
+    on one card take little longer than one.  Each process sets and reads
+    its own launch counts.  Returns each job's failed gates and logged
+    values (``fit_gates``)."""
+    import multiprocessing
+    import queue as queues
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=fit_path_runs,
+                         args=(path, root, str(device), seed, results))
+             for path, seed in jobs]
+    for proc in procs:
+        proc.start()
+    runs, errors = {}, {}
+    try:
+        for _ in procs:
+            path, seed, got, error = results.get(
+                timeout=FIT_PROCESS_TIMEOUT)
+            if error is not None:
+                errors[path, seed] = error
+            runs[path, seed] = got
+    except queues.Empty:
+        errors["timeout"] = f"no result within {FIT_PROCESS_TIMEOUT} s"
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    if errors:
+        raise AssertionError(f"fit processes failed: {errors}")
+    return {job: fit_gates(*job, root, runs[job]) for job in jobs}
+
+
+def fit_gates(path, seed, root, runs):
+    """The gates of one fit path's runs: the step counts, the restore, the
+    checkpoints kept, the launches, finite losses, the data loss's fall
+    to below FIT_LOSS_FALL of step 1's and the total loss's fall, the
+    profile trace.  Returns the failed gates (empty when all held)
+    and the logged values."""
+    experiment = root / f"{path}_seed{seed}"
+    half = FIT_STEPS // 2
+    with open(experiment / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    kept = train.CheckpointStore(str(experiment)).checkpoint_steps()
+    traces = sorted(p.name for p in (experiment / "profile").glob("*.json"))
+    # The data loss: total_loss less the L2 term (~2.7 at these weights,
+    # which the weight decay hardly moves in these steps).
+    losses = {r["step"]: r["class_loss"] + r["regr_loss"] for r in records}
+    last = [losses[r["step"]] for r in records[-5:]]
+    rates = {r["step"]: r["images_per_sec"] for r in records}
+    steady = sorted(v for s, v in rates.items()
+                    if s not in (1, half + FIT_LOG_EVERY))
+    launches = [{k: n for k, n in run[1].items() if n} for run in runs]
+    fields = dict(
+        path=path, seed=seed, steps=[run[0] for run in runs],
+        seconds=[run[3] for run in runs],
+        ms_per_step=[run[3] / half * 1e3 for run in runs],
+        launches=launches, checkpoints_kept=kept, profile_traces=traces,
+        restored=[m for m in runs[1][2] if m.startswith("restored")],
+        total_loss_step_1=records[0]["total_loss"],
+        total_loss_last_5_mean=sum(r["total_loss"] for r in records[-5:]) / 5,
+        data_loss_step_1=losses.get(1),
+        data_loss_last_5_mean=sum(last) / len(last),
+        logged_steps=len(records),
+        images_per_sec_median=steady[len(steady) // 2],
+        images_per_sec=rates)
+    log("fit", **fields)
+    failed = []
+    if fields["steps"] != [half, FIT_STEPS]:
+        failed.append(f"steps {fields['steps']}")
+    if fields["restored"] != [f"restored checkpoint from step {half}"]:
+        failed.append(f"restore log {fields['restored']}")
+    if len(kept) > FIT_KEEP or kept[-1:] != [FIT_STEPS]:
+        failed.append(f"checkpoints kept {kept}")
+    per_run = {"b1": 12 * half, "b3": 12 * half} if path == "kernels" \
+        else {}
+    if launches != [per_run, per_run]:
+        failed.append(f"launches {launches}, expected {per_run} a run")
+    if not all(math.isfinite(r[k]) for r in records
+               for k in TRAIN_KEYS):
+        failed.append("a non-finite logged loss")
+    if not fields["data_loss_last_5_mean"] < FIT_LOSS_FALL * losses[1]:
+        failed.append(f"data loss {losses[1]} → "
+                      f"{fields['data_loss_last_5_mean']}")
+    if not fields["total_loss_last_5_mean"] < fields["total_loss_step_1"]:
+        failed.append(f"total loss {fields['total_loss_step_1']} → "
+                      f"{fields['total_loss_last_5_mean']}")
+    if path == "kernels" and len(traces) != 1:
+        failed.append(f"profile traces {traces}")
+    return failed, fields
+
+
+def fit_serving_config(path, quantize=False, *flags):
+    """The ``evaluate`` CLI's config serving a fit path's model (its
+    FIT_SERVE flags), with ``flags`` added."""
+    argv = ["--dataset", "shapes", "unused", str(FIT_EVAL_IMAGES),
+            str(FIT_SIZE), "--backbone", "resnet_50_dense", "--scale",
+            str(FIT_SIZE), "--batch-size", str(FIT_BATCH), *FIT_SERVE[path],
+            *(("--quantize", "int8") if quantize else ()), *flags]
+    return evaluate.build_config(evaluate.build_parser().parse_args(argv))
+
+
+def fit_serving(path, experiment, device, quantize=False, average=1):
+    """``evaluate.load_detector`` on the mean of the newest ``average``
+    checkpoints (1: the FIT_STEPS checkpoint), with the serving flags of
+    the path that trained it, and its config."""
+    flags = (("--average-checkpoints", str(average)) if average > 1
+             else ("--step", str(FIT_STEPS)))
+    config = fit_serving_config(path, quantize, "--experiment",
+                                str(experiment), *flags)
+    step = None if average > 1 else FIT_STEPS
+    return evaluate.load_detector(config, fit_eval_loader(), step,
+                                  average_last=average, device=device), config
+
+
+def fit_eval_loader(images=FIT_EVAL_IMAGES):
+    from retinanet_tpu_torch.data.loaders.shapes import Shapes
+    return Shapes(None, images, (FIT_SIZE, FIT_SIZE), seed=FIT_EVAL_SEED)
+
+
+def fit_map(label, detector, config, images=FIT_EVAL_IMAGES):
+    """``evaluate_model`` on the first ``images`` held-out images,
+    counted: the metrics and the launches per batch."""
+    counters = eval_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.monotonic()
+    metrics = evaluate_model(detector, fit_eval_loader(images), config)
+    torch.cuda.synchronize()
+    batches = -(-images // FIT_BATCH)
+    per_batch = {k: fn.launches / batches for k, fn in counters.items()
+                 if fn.launches}
+    log("fit-map", path=label, images=images,
+        metrics=evaluate.strict_json(metrics),
+        launches_per_batch=per_batch, seconds=time.monotonic() - t)
+    return metrics, per_batch
+
+
+def fit_maps(root, device, seed=FIT_SEED, paths=tuple(FIT_PATHS)):
+    """Each path's FIT_STEPS checkpoint on the held-out set, served on its
+    own path, and on FIT_WIDE_EVAL_IMAGES held-out images (keyed
+    "<path>@wide"); for the kernel path also with every GroupNorm on B4
+    and with int8 convs."""
+    maps = {}
+    for path in paths:
+        experiment = root / f"{path}_seed{seed}"
+        detector, config = fit_serving(path, experiment, device)
+        maps[path] = fit_map(path, detector, config)
+        maps[f"{path}@wide"] = fit_map(f"{path}@wide", detector, config,
+                                       FIT_WIDE_EVAL_IMAGES)
+        if path == "kernels":
+            use_group_norm_kernel(detector.model, True)
+            maps["kernels+b4"] = fit_map("kernels+b4", detector, config)
+            del detector
+            detector, config = fit_serving(path, experiment, device,
+                                           quantize=True)
+            maps["int8"] = fit_map("int8", detector, config)
+        del detector
+        torch.cuda.empty_cache()
+    return maps
+
+
+def fit_surfaces(root, device):
+    """The serving surfaces on the kernel path's trained experiment:
+    ``evaluate --experiment`` over the first 64 training images,
+    ``export --experiment`` then ``evaluate --from-export`` on the file
+    (the same metrics), ``detect --experiment --step`` on two PNG files (1
+    B2 launch a batch), and ``write_image_summaries`` at the last step."""
+    from retinanet_tpu_torch import export
+    from retinanet_tpu_torch.data.loaders.shapes import Shapes
+
+    experiment = str(root / f"kernels_seed{FIT_SEED}")
+    dataset = ["shapes", str(root / "shapes"), str(FIT_SURFACE_IMAGES),
+               str(FIT_SIZE)]
+    serving = ("--backbone", "resnet_50_dense", "--scale", str(FIT_SIZE))
+    base = ("--dataset", *dataset, "--batch-size", str(FIT_BATCH),
+            "--device", str(device), *FIT_SERVE["kernels"])
+    batches = FIT_SURFACE_IMAGES // FIT_BATCH
+    expected = EVAL_PATHS["kernels"][1]
+    from_experiment, _, _ = run_eval(
+        "fit-experiment", base + ("--experiment", experiment) + serving,
+        expected, batches)
+    artifact = str(root / "kernels.npz")
+    export.main(["--experiment", experiment, *serving, "--dataset",
+                 *dataset, "--out", artifact, "--device", str(device)])
+    from_export, _, _ = run_eval(
+        "fit-export", base + ("--from-export", artifact), expected, batches)
+    equal = (evaluate.strict_json(from_export)
+             == evaluate.strict_json(from_experiment))  # nan as None
+    log("fit-export", equal=equal)
+    if not equal:
+        raise AssertionError(f"--from-export {from_export} differs from "
+                             f"--experiment {from_experiment}")
+
+    paths = []
+    for seed in (1, 2):
+        image = next(iter(Shapes(None, 1, (FIT_SIZE, FIT_SIZE),
+                                 seed=seed)))["image"]
+        paths.append(str(root / f"detect{seed}.png"))
+        pipeline.cv2.imwrite(paths[-1], image[..., ::-1])
+    counters = eval_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    quiet = logging.getLogger(detect.__name__)  # the records hold them
+    level = quiet.level
+    quiet.setLevel(logging.WARNING)
+    try:
+        records = detect.main([*paths, "--experiment", experiment,
+                               "--step", str(FIT_STEPS), *serving,
+                               "--dataset", *dataset, "--batch-size", "2",
+                               "--score-threshold", "0.05", "--device",
+                               str(device)])
+    finally:
+        quiet.setLevel(level)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    per_image = [sum(r["image"] == p for r in records) for p in paths]
+    log("fit-detect", launches=launches, detections_per_image=per_image,
+        classes=sorted({r["class"] for r in records}))
+    if launches != {"b2": 1} or min(per_image) == 0:
+        raise AssertionError(f"detect --experiment: {launches} launches, "
+                             f"{per_image} detections per image")
+
+    config, _ = train.parse_args(fit_argv("kernels", root, device))
+    trainer = train.Trainer(config, device=device)
+    state = trainer.restore_checkpoint(create_train_state(
+        trainer.model, config, trainer.model.state_dict()))
+    with contextlib.closing(trainer.pipeline.prefetched(0)) as stream:
+        batch = next(stream)
+    trainer.write_image_summaries(state, batch)
+    out = Path(experiment) / "summaries" / f"step_{state.step}"
+    want = {f"{i}_{kind}.png" for i in (0, 1) for kind in ("true", "pred")}
+    want |= {f"{i}_classmap_{pn}_{kind}.png" for i in (0, 1)
+             for pn in ("P3", "P4", "P5", "P6", "P7")
+             for kind in ("true", "pred")}
+    written = {p.name for p in out.glob("*.png")}
+    log("fit-summaries", step=state.step, written=len(written),
+        missing=sorted(want - written))
+    if state.step != FIT_STEPS or written != want:
+        raise AssertionError(f"image summaries at step {state.step}: "
+                             f"missing {sorted(want - written)}")
+
+
+def check_fit(device):
+    """The fit phase (FIT_* constants): both paths trained and gated, the
+    mAP gate, B4 and int8 on the trained kernel-path model, and the
+    serving surfaces on its checkpoints.  Returns the kernel path's
+    training launches per kernel."""
+    root = Path(__file__).resolve().parent / "build" / "fit_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    gates = train_fit_paths(root, device)
+    failed = {path: f for (path, _), (f, _) in gates.items()}
+    fits = {path: fields for (path, _), (_, fields) in gates.items()}
+    if any(failed.values()):
+        raise AssertionError(f"fit gates failed: {failed}")
+    maps = fit_maps(root, device)
+    m = {path: metrics for path, (metrics, _) in maps.items()}
+    gaps = {"kernels_vs_plain": abs(m["kernels"]["mAP"] - m["plain"]["mAP"]),
+            "b4_vs_kernels": abs(m["kernels+b4"]["mAP"]
+                                 - m["kernels"]["mAP"]),
+            "int8_vs_kernels": m["int8"]["mAP"] - m["kernels"]["mAP"],
+            "kernels_vs_plain_wide_ungated": abs(
+                m["kernels@wide"]["mAP"] - m["plain@wide"]["mAP"])}
+    gated = {"ap50": {p: m[p]["AP50"] >= FIT_AP50_FLOOR
+                      for p in FIT_PATHS},
+             "kernels_vs_plain": gaps["kernels_vs_plain"] <= FIT_MAP_GAP,
+             "b4_vs_kernels": gaps["b4_vs_kernels"] <= FIT_B4_GAP}
+    launches = {p: per_batch for p, (_, per_batch) in maps.items()}
+    log("fit-gate", mAP={p: v["mAP"] for p, v in m.items()},
+        AP50={p: v["AP50"] for p, v in m.items()}, gaps=gaps,
+        ap50_floor=FIT_AP50_FLOOR, map_gap_bound=FIT_MAP_GAP,
+        b4_gap_bound=FIT_B4_GAP, held=gated)
+    serve = {"kernels": {"b1": 12, "b2": 1}, "plain": {"b2": 1},
+             "int8": {"b6": 59, "b2": 1}}
+    serve.update({f"{p}@wide": serve[p] for p in FIT_PATHS})
+    wrong = {p: launches[p] for p, want in serve.items()
+             if launches[p] != want}
+    if not launches["kernels+b4"].get("b4") or \
+            launches["kernels+b4"].get("b1") != 12:
+        wrong["kernels+b4"] = launches["kernels+b4"]
+    if wrong:
+        raise AssertionError(f"fit mAP runs launched {wrong}")
+    if not (all(gated["ap50"].values()) and gated["kernels_vs_plain"]
+            and gated["b4_vs_kernels"]):
+        raise AssertionError(f"mAP gate failed: {gated}")
+    fit_surfaces(root, device)
+    return {k: sum(run.get(k, 0) for run in fits["kernels"]["launches"])
+            for k in eval_counters()}
+
+
+def fit_spread(device):
+    """The ``spread`` phase: both fit paths trained from each of
+    SPREAD_SEEDS (``train_fit_paths``, three at once, gated as in the fit
+    phase), each model's held-out mAP from its last checkpoint and from
+    the mean of its newest FIT_AVERAGE on the first n images for each n
+    of SPREAD_EVAL_IMAGES, and the gaps between every two models: same
+    seed across paths, same path across seeds, and across both."""
+    root = Path(__file__).resolve().parent / "build" / "fit_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    maps = {}
+    models = [(path, seed) for seed in SPREAD_SEEDS for path in FIT_PATHS]
+    for jobs in (models[:len(models) // 2], models[len(models) // 2:]):
+        failed = {job: f for job, (f, _) in
+                  train_fit_paths(root, device, jobs).items() if f}
+        if failed:
+            raise AssertionError(f"fit gates failed: {failed}")
+        for path, seed in jobs:
+            experiment = root / f"{path}_seed{seed}"
+            for average in (1, FIT_AVERAGE):
+                detector, config = fit_serving(path, experiment, device,
+                                               average=average)
+                for n in SPREAD_EVAL_IMAGES:
+                    maps[average, n, path, seed] = fit_map(
+                        f"{path}{seed}/{average}", detector, config,
+                        n)[0]["mAP"]
+                del detector
+            shutil.rmtree(experiment / "checkpoints")
+            torch.cuda.empty_cache()
+    for average in (1, FIT_AVERAGE):
+        for n in SPREAD_EVAL_IMAGES:
+            m = {job: maps[(average, n) + job] for job in models}
+            gaps = {"same_seed": [], "same_path": [], "across": []}
+            for i, (pa, sa) in enumerate(models):
+                for pb, sb in models[i + 1:]:
+                    kind = ("same_seed" if sa == sb else
+                            "same_path" if pa == pb else "across")
+                    gaps[kind].append(abs(m[pa, sa] - m[pb, sb]))
+            log("fit-spread", checkpoints_averaged=average, eval_images=n,
+                map_gap_bound=FIT_MAP_GAP,
+                mAP={f"{p}{s}": v for (p, s), v in m.items()},
+                max_gap={k: max(v) for k, v in gaps.items()},
+                mean_gap={k: sum(v) / len(v) for k, v in gaps.items()},
+                gaps=gaps)
+
+
 def build_kernels():
     """One nvcc per source and the host library's g++, all started
     together."""
@@ -2894,9 +3470,9 @@ def parse_phases(argv):
         return PHASES
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit(f"usage: chip_smoke.py [--phases "
-                         f"{','.join(PHASES)},parent]")
+                         f"{','.join(PHASES)},parent,spread]")
     phases = tuple(argv[1].split(","))
-    unknown = set(phases) - set(PHASES) - {"parent"}
+    unknown = set(phases) - set(PHASES) - {"parent", "spread"}
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}; choose from "
                          f"{PHASES}")
@@ -2954,7 +3530,8 @@ def main(argv=()) -> int:
     if "int8" in phases:
         int8_launches, int8_shapes = check_int8_serving(device)
         launches["b6"] = int8_launches["b6"]
-        errs["b6"] = check_b6(device, int8_shapes)
+        errs["b6"] = check_b6(device, {**int8_shapes,
+                                       **fit_int8_shapes(device)})
         ends["int8"] = time.monotonic() - t0
     if "parent" in phases:
         if not int8_shapes and (PARENT_DIR / "int8_conv.py").exists():
@@ -2979,10 +3556,20 @@ def main(argv=()) -> int:
             timing.update(time_new_kernels(device, int8_shapes))
         time_end_to_end(device)
         time_training(device)
+        time_train_pipeline(device)
         ends["timing"] = time.monotonic() - t0
     if "breakdown" in phases:
         breakdown(device)
         ends["breakdown"] = time.monotonic() - t0
+    if "fit" in phases:
+        # Last: a profile window loses its first kernels more the older
+        # the process is (utils/profiling.py), and this phase takes
+        # minutes without one.
+        fit_launches = check_fit(device)
+        ends["fit"] = time.monotonic() - t0
+    if "spread" in phases:
+        fit_spread(device)
+        ends["spread"] = time.monotonic() - t0
     if B128_RATES:
         log_mfu()
     log("done", seconds=time.monotonic() - t0, phases=list(phases),
@@ -3007,7 +3594,8 @@ def main(argv=()) -> int:
                "retinanet_tpu/ops/pallas/stem.py:94"),
     }
     extra = {key: {"eval_launches_per_batch": {
-        path: per_batch[key] for path, per_batch in eval_launches.items()}}
+        path: per_batch[key] for path, per_batch in eval_launches.items()},
+        "fit_launches_kernel_path": fit_launches[key]}
         for key in sources}
     extra["b2"].update(largest_n_checked=b2_largest_n,
                        launches_reference_decode_every_candidate=sum(

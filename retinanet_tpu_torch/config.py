@@ -2,18 +2,20 @@
 
 The same frozen dataclasses with the same fields and defaults, so a run of
 the port is described by the same values as a run of the JAX package
-(``tests/test_torch_config.py`` holds them equal field by field), and the
+(``tests/test_torch_config.py`` holds them equal field by field), the
 helpers ``_apply_dotted`` and ``parse_buckets`` that the CLIs build a
-config with.  Left out: ``ParallelConfig`` (the device mesh; the
-data-parallel slice brings its own) and the CLI parser
-``config_from_args`` (the CLI slice).  Comments on what
-each field does on the TPU stay with the JAX package.
+config with, and the training CLI's flag surface ``config_from_args``
+(``--platform`` becomes ``--device``, which ``parse_args`` returns beside
+the config).  ``ParallelConfig`` describes the JAX package's device mesh;
+the port runs one process on one device and refuses anything larger
+(``train.Trainer``) until ``torch.distributed`` lands (ROADMAP A.7).
+Comments on what each field does on the TPU stay with the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +160,17 @@ class NMSConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Device mesh of the JAX package: a 1-D data axis, and with
+    ``spatial`` > 1 a second axis over the image height."""
+
+    data_axis: str = "data"
+    space_axis: str = "space"
+    num_devices: Optional[int] = None  # None = all visible devices
+    spatial: int = 1  # devices along the space (image-height) axis
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     anchors: AnchorConfig = dataclasses.field(default_factory=AnchorConfig)
     assign: AssignConfig = dataclasses.field(default_factory=AssignConfig)
@@ -166,6 +179,7 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     nms: NMSConfig = dataclasses.field(default_factory=NMSConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
@@ -187,3 +201,144 @@ def parse_buckets(specs) -> Tuple[Tuple[int, int], ...]:
         h, w = spec.lower().split("x")
         buckets.append((int(h), int(w)))
     return tuple(buckets)
+
+
+def build_parser():
+    """The training CLI's flags: the JAX package's ``config_from_args``
+    surface (reference ``train.py:88-108`` plus the TPU-native additions),
+    with ``--device`` in place of ``--platform``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="retinanet_tpu_torch trainer")
+    parser.add_argument("--learning-rate", type=float, default=1e-2)
+    parser.add_argument("--dropout", type=float, default=0.2)
+    parser.add_argument("--dataset", type=str, nargs="+", required=True)
+    parser.add_argument("--epochs", type=int, default=1000)
+    parser.add_argument("--scale", type=int, default=600,
+                        help="static square image size (reference shorter-side scale)")
+    parser.add_argument("--experiment", type=str, required=True)
+    parser.add_argument("--grad-clip-norm", type=float, default=None)
+    parser.add_argument(
+        "--backbone", type=str, default="resnet_50",
+        choices=["resnet_50", "resnet_50_dense", "densenet_121",
+                 "densenet_169", "mobilenet_v2"])
+    parser.add_argument(
+        "--optimizer", type=str, default="momentum",
+        choices=["momentum", "adam", "rmsprop"])
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--steps-per-epoch", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--log-every", type=int, default=50)
+    parser.add_argument(
+        "--workers", type=int, default=None,
+        help="host decode threads (default: DataConfig.num_workers)")
+    parser.add_argument(
+        "--augment-photometric", action="store_true",
+        help="random brightness/contrast/saturation jitter (host-side)")
+    parser.add_argument(
+        "--augment-scale-jitter", type=float, default=0.0, metavar="J",
+        help="zoom-out scale jitter: resize factor multiplied by U[1-J, 1] "
+             "per training image (0 = off)")
+    parser.add_argument(
+        "--pair-flip-batching", action="store_true",
+        help="reference-parity batches: each image contributes itself AND "
+             "its horizontal flip as adjacent batch entries instead of "
+             "random flip; batch size must be even")
+    parser.add_argument(
+        "--buckets", type=str, nargs="+", default=None, metavar="HxW",
+        help="rectangular canvas buckets, e.g. --buckets 640x640 640x448 "
+             "448x640; each image goes to the least-padding bucket and "
+             "batches are bucket-homogeneous")
+    parser.add_argument(
+        "--class-loss", type=str, nargs="+", default=None,
+        choices=["bce", "focal", "dice", "jaccard", "fixed_iou",
+                 "balanced_bce"],
+        help="classification loss mix (default: bce dice, the reference's "
+             "active config; 'focal' is the paper loss)")
+    parser.add_argument(
+        "--schedule", type=str, default="constant",
+        choices=["constant", "cosine", "warmup_cosine", "cyclical"])
+    parser.add_argument(
+        "--warmup-steps", type=int, default=None, metavar="N",
+        help="linear LR warmup length for --schedule warmup_cosine "
+             "(default 500)")
+    parser.add_argument(
+        "--schedule-steps", type=int, default=None, metavar="N",
+        help="decay horizon for cosine/warmup_cosine/cyclical schedules "
+             "(default 100000; set to the planned optimizer-step count)")
+    parser.add_argument(
+        "--grad-accum", type=int, default=1, metavar="A",
+        help="accumulate gradients over A micro-batches per optimizer step "
+             "(batch-size must divide by A)")
+    parser.add_argument(
+        "--spatial", type=int, default=1, metavar="S",
+        help="shard image height over S devices; values above 1 wait for "
+             "ROADMAP A.7 (torch.distributed)")
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="torch device to train on (default cuda; 'cpu' runs the "
+             "kernels' plain versions)")
+    parser.add_argument(
+        "--init-backbone", type=str, default=None, metavar="PATH",
+        help="initialize the backbone from a weights file (save_backbone "
+             "npz or a torch/torchvision state_dict) when starting fresh; "
+             "ignored on checkpoint resume")
+    parser.add_argument(
+        "--fused-train", action="store_true",
+        help="every identity bottleneck block of the dense ResNet on the "
+             "fused forward (kernel B1) and the hand-written backward "
+             "(kernel B3) when training")
+    parser.add_argument(
+        "--profile", type=int, default=0, metavar="N",
+        help="trace N train steps from the third on with torch.profiler, "
+             "as a Chrome trace under <experiment>/profile")
+    return parser
+
+
+def parse_args(argv: Optional[Sequence[str]] = None
+               ) -> Tuple[Config, str]:
+    """``(config, device)`` from the training CLI's flags."""
+    args = build_parser().parse_args(argv)
+    cfg = Config()
+    for dotted, value in [
+        ("train.learning_rate", args.learning_rate),
+        ("model.dropout_rate", args.dropout),
+        ("data.dataset", tuple(args.dataset)),
+        ("train.epochs", args.epochs),
+        ("data.image_size", args.scale),
+        ("train.experiment", args.experiment),
+        ("train.grad_clip_norm", args.grad_clip_norm),
+        ("model.backbone", args.backbone),
+        ("train.optimizer", args.optimizer),
+        ("data.batch_size", args.batch_size),
+        ("train.steps_per_epoch", args.steps_per_epoch),
+        ("train.seed", args.seed),
+        ("train.schedule", args.schedule),
+        ("train.log_every", args.log_every),
+        ("train.profile_steps", args.profile),
+        ("data.pair_flip_batching", bool(args.pair_flip_batching)),
+        ("data.augment_photometric", bool(args.augment_photometric)),
+        ("data.augment_scale_jitter", args.augment_scale_jitter),
+        ("parallel.spatial", args.spatial),
+        ("train.grad_accum", args.grad_accum),
+        ("train.init_backbone", args.init_backbone),
+        ("model.fused_train", bool(args.fused_train)),
+    ]:
+        cfg = _apply_dotted(cfg, dotted, value)
+    if args.workers is not None:
+        cfg = _apply_dotted(cfg, "data.num_workers", args.workers)
+    if args.warmup_steps is not None:
+        cfg = _apply_dotted(cfg, "train.warmup_steps", args.warmup_steps)
+    if args.schedule_steps is not None:
+        cfg = _apply_dotted(cfg, "train.schedule_steps", args.schedule_steps)
+    if args.class_loss is not None:
+        cfg = _apply_dotted(cfg, "loss.class_losses", tuple(args.class_loss))
+    if args.buckets is not None:
+        cfg = _apply_dotted(cfg, "data.buckets", parse_buckets(args.buckets))
+    return cfg, args.device
+
+
+def config_from_args(argv: Optional[Sequence[str]] = None) -> Config:
+    """The Config of the training CLI's flags (``parse_args`` without the
+    device)."""
+    return parse_args(argv)[0]

@@ -473,10 +473,16 @@ class Pipeline:
                 error.append(e)
             finally:
                 gen.close()  # unwinds epoch()'s ThreadPoolExecutor
-                try:
-                    q.put_nowait(sentinel)
-                except queue.Full:
-                    pass
+                # The end of the epoch must reach a consumer still reading,
+                # however full the queue: a slower consumer (a training
+                # step that outlasts a batch's preparation) would otherwise
+                # wait on q.get() forever after the last batch.
+                while not stop.is_set():
+                    try:
+                        q.put(sentinel, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()

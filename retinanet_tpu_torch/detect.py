@@ -1,7 +1,10 @@
-"""Detection CLI: serving artifact + image files → annotated PNGs + JSON
-(the port of ``retinanet_tpu/detect.py``), on the card unless ``--device``
-says otherwise.
+"""Detection CLI: checkpoint or serving artifact + image files →
+annotated PNGs + JSON (the port of ``retinanet_tpu/detect.py``), on the
+card unless ``--device`` says otherwise.
 
+    python -m retinanet_tpu_torch.detect img1.jpg img2.png \
+        --experiment /tmp/exp --backbone resnet_50_dense --scale 256 \
+        --class-names square,triangle,circle --out /tmp/det
     python -m retinanet_tpu_torch.detect img1.jpg img2.png \
         --from-export model.npz --out /tmp/det --dump-json /tmp/det.json
 
@@ -9,7 +12,6 @@ Images are read with cv2 or PIL, and ``--out`` is written with PIL.
 Each image gets the training pipeline's
 resize/pad geometry (``data.pipeline.process_sample``), and boxes map back
 to original-image pixels via the recorded per-image scale.
-``--experiment`` and ``--step`` raise: checkpoints wait for ROADMAP A.4.
 """
 
 from __future__ import annotations
@@ -24,7 +26,22 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-CHECKPOINTS = "ROADMAP A.4 (Trainer.fit and CheckpointStore)"
+
+class _Names:
+    """Minimal loader stand-in for load_detector (class names/count only)."""
+
+    def __init__(self, class_names: List[str]):
+        self.class_names = class_names
+        self.num_classes = len(class_names)
+
+
+def _resolve_class_names(args) -> List[str]:
+    if args.class_names:
+        return [c.strip() for c in args.class_names.split(",") if c.strip()]
+    if args.dataset:
+        from retinanet_tpu_torch.data.loaders.inferred import Inferred
+        return Inferred(args.dataset[0], args.dataset[1:]).class_names
+    raise SystemExit("need --class-names or --dataset to label detections")
 
 
 def _load_batch(paths: List[str], image_size: int):
@@ -56,18 +73,17 @@ def main(argv=None):
         description="run a trained detector on image files")
     parser.add_argument("images", nargs="+", help="image files (jpg/png)")
     parser.add_argument("--experiment", type=str, default=None,
-                        help=f"experiment checkpoint dir: waits for "
-                             f"{CHECKPOINTS}")
+                        help="experiment dir whose checkpoint to serve")
     parser.add_argument(
         "--from-export", type=str, default=None, metavar="PATH.npz",
         help="serve from a single-file export; backbone/scale/class names "
              "come from the artifact")
     parser.add_argument("--backbone", type=str, default="resnet_50")
     parser.add_argument("--scale", type=int, default=None,
-                        help="serving canvas size (default: the export "
-                             "artifact's recorded size)")
+                        help="serving canvas size (default 600, or the "
+                             "export artifact's recorded size)")
     parser.add_argument("--step", type=int, default=None,
-                        help=f"checkpoint step: waits for {CHECKPOINTS}")
+                        help="checkpoint step (default: the latest)")
     parser.add_argument("--batch-size", type=int, default=8,
                         help="images per inference batch")
     parser.add_argument(
@@ -95,21 +111,17 @@ def main(argv=None):
                         help="torch device to serve on (default cuda)")
     args = parser.parse_args(argv)
 
-    for flag, value in (("--experiment", args.experiment),
-                        ("--step", args.step)):
-        if value is not None:
-            raise SystemExit(f"{flag} reads experiment checkpoints, which "
-                             f"wait for {CHECKPOINTS}; serve a "
-                             f"--from-export artifact")
-    if args.from_export is None:
-        raise SystemExit("need --from-export (serving artifact); "
-                         f"--experiment waits for {CHECKPOINTS}")
+    if args.from_export is None and args.experiment is None:
+        raise SystemExit("need --experiment (checkpoint dir) or "
+                         "--from-export (serving artifact)")
 
     from retinanet_tpu_torch.config import Config, _apply_dotted
-    from retinanet_tpu_torch.export import load_exported_detector, read_meta
     scale = args.scale
     if scale is None:
-        scale = int(read_meta(args.from_export)["image_size"])
+        scale = 600
+        if args.from_export:
+            from retinanet_tpu_torch.export import read_meta
+            scale = int(read_meta(args.from_export)["image_size"])
 
     config = Config()
     for dotted, value in [
@@ -117,15 +129,22 @@ def main(argv=None):
         ("data.batch_size", args.batch_size),
         ("model.backbone", args.backbone),
         ("model.quantize", args.quantize),
-        ("train.experiment", ""),
+        ("train.experiment", args.experiment or ""),
         ("nms.score_threshold", args.score_threshold),
         ("nms.use_approx_top_k", bool(args.approx_top_k)),
     ]:
         config = _apply_dotted(config, dotted, value)
 
-    detector = load_exported_detector(args.from_export, config=config,
-                                      device=args.device)
-    class_names = detector.class_names
+    if args.from_export:
+        from retinanet_tpu_torch.export import load_exported_detector
+        detector = load_exported_detector(args.from_export, config=config,
+                                          device=args.device)
+        class_names = detector.class_names
+    else:
+        class_names = _resolve_class_names(args)
+        from retinanet_tpu_torch.evaluate import load_detector
+        detector = load_detector(config, _Names(class_names), args.step,
+                                 device=args.device)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

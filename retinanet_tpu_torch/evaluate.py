@@ -1,17 +1,18 @@
-"""Evaluation CLI — mAP over a dataset from a serving artifact (the port of
-``retinanet_tpu/evaluate.py``), on the card unless ``--device`` says
-otherwise.
+"""Evaluation CLI — mAP over a dataset from a training checkpoint or a
+serving artifact (the port of ``retinanet_tpu/evaluate.py``), on the card
+unless ``--device`` says otherwise.
 
 Usage::
 
     python -m retinanet_tpu_torch.evaluate --dataset shapes /tmp/shapes 64 640 \
-        --from-export model.npz --batch-size 8 --fused-blocks --fused-res2
+        --experiment experiments/run1 --backbone resnet_50_dense \
+        --batch-size 8 --fused-blocks --fused-res2
+    python -m retinanet_tpu_torch.evaluate --dataset shapes /tmp/shapes 64 640 \
+        --from-export model.npz
 
-The flags are the JAX CLI's, ``--platform`` becoming ``--device``.  Those
-whose port has not landed raise, naming the ROADMAP item that brings them:
-``--experiment``, ``--step`` and ``--average-checkpoints`` (checkpoints,
-A.4); ``--data-parallel``, ``--spatial`` and a multi-process run
-(``torch.distributed``, A.7).
+The flags are the JAX CLI's, ``--platform`` becoming ``--device``.
+``--data-parallel``, ``--spatial`` and a multi-process run raise, naming
+the ROADMAP item that brings them (``torch.distributed``, A.7).
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ import argparse
 import json
 import logging
 import math
+import os
+from typing import Optional, Union
+
+import torch
 
 from retinanet_tpu_torch.config import Config, _apply_dotted, parse_buckets
 from retinanet_tpu_torch.data.loaders.inferred import Inferred
@@ -27,24 +32,23 @@ from retinanet_tpu_torch.eval_coco import evaluate_model
 
 logger = logging.getLogger(__name__)
 
-CHECKPOINTS = "ROADMAP A.4 (Trainer.fit and CheckpointStore)"
 DISTRIBUTED = "ROADMAP A.7 (torch.distributed)"
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="mAP of a serving artifact over a dataset")
+        description="mAP of a checkpoint or serving artifact over a "
+                    "dataset")
     parser.add_argument("--dataset", type=str, nargs="+", required=True)
-    parser.add_argument(
-        "--experiment", type=str, default=None,
-        help=f"experiment checkpoint dir: waits for {CHECKPOINTS}")
+    parser.add_argument("--experiment", type=str, default=None,
+                        help="experiment dir whose checkpoints to serve")
     parser.add_argument(
         "--from-export", type=str, default=None, metavar="PATH.npz",
         help="evaluate a single-file serving artifact (an "
              "retinanet_tpu_export_v1 npz); its class set must match the "
              "dataset's")
     parser.add_argument("--scale", type=int, default=None,
-                        help="eval canvas size (default: the export "
+                        help="eval canvas size (default 600, or the export "
                              "artifact's recorded serving size)")
     parser.add_argument("--backbone", type=str, default="resnet_50")
     parser.add_argument("--batch-size", type=int, default=8)
@@ -61,10 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="decode validity threshold; mAP integrates the PR curve over "
              "scores, so keep this low (COCO practice: 0.05)")
     parser.add_argument("--step", type=int, default=None,
-                        help=f"checkpoint step: waits for {CHECKPOINTS}")
+                        help="checkpoint step (default: the latest)")
     parser.add_argument(
         "--average-checkpoints", type=int, default=None, metavar="N",
-        help=f"mean of the newest N checkpoints: waits for {CHECKPOINTS}")
+        help="evaluate the elementwise mean of the newest N checkpoints "
+             "(checkpoint averaging; mutually exclusive with --step)")
     parser.add_argument(
         "--approx-top-k", action="store_true",
         help="sets NMSConfig.use_approx_top_k (a TPU unit; the port "
@@ -118,22 +123,80 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise for each flag whose port has not landed, naming its item."""
-    for flag, value in (("--experiment", args.experiment),
-                        ("--step", args.step),
-                        ("--average-checkpoints", args.average_checkpoints)):
-        if value is not None:
-            raise SystemExit(f"{flag} reads experiment checkpoints, which "
-                             f"wait for {CHECKPOINTS}; serve a "
-                             f"--from-export artifact")
     if args.data_parallel or args.spatial > 1:
         raise SystemExit(f"--data-parallel/--spatial wait for {DISTRIBUTED}")
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise SystemExit(f"multi-process evaluation waits for {DISTRIBUTED}")
-    if args.from_export is None:
-        raise SystemExit("need --from-export (serving artifact); "
-                         f"--experiment waits for {CHECKPOINTS}")
+
+
+def load_detector(config: Config, loader, step: Optional[int] = None,
+                  average_last: Optional[int] = None,
+                  device: Union[str, torch.device] = "cuda"):
+    """A ``Detector`` on the experiment's latest (or given) checkpoint,
+    through :class:`~retinanet_tpu_torch.train.CheckpointStore` directly —
+    not a Trainer, so serving inherits no training-only validation — and
+    its params-only restore.
+
+    ``average_last=N`` serves the elementwise mean of the newest N
+    checkpoints' parameters, in new tensors (checkpoint averaging).
+    ``loader`` gives the class names (and so the class count).
+    """
+    from retinanet_tpu_torch.infer import Detector
+    from retinanet_tpu_torch.models.retinanet import RetinaNet
+    from retinanet_tpu_torch.ops.anchors import build_levels
+    from retinanet_tpu_torch.train import CheckpointStore
+
+    store = CheckpointStore(config.train.experiment,
+                            config.train.keep_checkpoints)
+
+    def template():
+        """The model's parameter names and shapes (meta tensors)."""
+        with torch.device("meta"):
+            return RetinaNet.from_config(
+                config.model, build_levels(config.anchors).num_anchors,
+                num_classes=loader.num_classes).state_dict()
+
+    if average_last is not None and average_last > 1:
+        if step is not None:
+            raise ValueError("--step and --average-checkpoints are "
+                             "mutually exclusive")
+        steps = store.checkpoint_steps()[-average_last:]
+        if not steps:
+            raise FileNotFoundError(
+                f"no checkpoints in {store.checkpoint_dir}")
+        if len(steps) < average_last:
+            logger.warning("only %d checkpoints available for "
+                           "--average-checkpoints %d", len(steps),
+                           average_last)
+        like = template()
+        acc = None
+        for s in steps:
+            params = store.restore_params(like, s)
+            if acc is None:
+                acc = {k: v.clone() for k, v in params.items()}
+            else:
+                for k, v in params.items():
+                    acc[k].add_(v)
+        for v in acc.values():
+            v.div_(float(len(steps)))
+        logger.info("serving the average of checkpoints %s", steps)
+        return Detector(config, acc, loader.class_names, device)
+    if step is not None:
+        # Fail fast on a missing checkpoint, before building the model.
+        path = os.path.join(store.checkpoint_dir, f"step_{step}")
+        if not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"no checkpoint at step {step} in {store.checkpoint_dir} "
+                f"(latest available: {store.latest_checkpoint_step()})")
+    elif store.latest_checkpoint_step() is None:
+        # Without this, the caller would serve untrained weights with rc=0.
+        raise FileNotFoundError(
+            f"no checkpoints in {store.checkpoint_dir} — wrong "
+            f"--experiment path, or the run never saved one")
+    params = store.restore_params(template(), step)
+    return Detector(config, params, loader.class_names, device)
 
 
 def strict_json(metrics: dict) -> dict:
@@ -146,12 +209,16 @@ def strict_json(metrics: dict) -> dict:
 def build_config(args) -> Config:
     """The serving config of parsed flags; the canvas defaults to the
     export artifact's, so it evaluates under the geometry it was built
-    for."""
+    for, and to 600 for a checkpoint."""
     from retinanet_tpu_torch.export import read_meta
 
     scale = args.scale
     if scale is None:
-        scale = int(read_meta(args.from_export)["image_size"])
+        # The export artifact records its serving canvas; honor it so the
+        # artifact evaluates under the geometry it was built for.
+        scale = 600
+        if args.from_export:
+            scale = int(read_meta(args.from_export)["image_size"])
     config = Config()
     for dotted, value in [
         ("data.dataset", tuple(args.dataset)),
@@ -159,7 +226,7 @@ def build_config(args) -> Config:
         ("data.batch_size", args.batch_size),
         ("model.backbone", args.backbone),
         ("model.quantize", args.quantize),
-        ("train.experiment", ""),
+        ("train.experiment", args.experiment or ""),
         ("nms.score_threshold", args.decode_threshold),
         ("nms.use_approx_top_k", bool(args.approx_top_k)),
         ("nms.use_approx_global_top_k", bool(args.approx_global_top_k)),
@@ -181,18 +248,29 @@ def main(argv=None):
     refuse_unported(args)
     config = build_config(args)
 
-    from retinanet_tpu_torch.export import load_exported_detector
-
     # Evaluation mode: crowd annotations become ignore regions (COCO eval
     # protocol) rather than being dropped (the training behaviour).
     loader = Inferred(args.dataset[0], args.dataset[1:], include_crowds=True)
-    detector = load_exported_detector(args.from_export, config=config,
-                                      device=args.device)
-    if list(detector.class_names) != list(loader.class_names):
-        # Order matters: class ids are positional.
-        raise SystemExit(
-            f"export classes {detector.class_names} do not match the "
-            f"dataset's {loader.class_names} (same names, same order)")
+    if args.from_export:
+        if args.average_checkpoints:
+            raise SystemExit("--average-checkpoints needs an experiment "
+                             "checkpoint dir; a --from-export artifact "
+                             "holds exactly one parameter set")
+        from retinanet_tpu_torch.export import load_exported_detector
+        detector = load_exported_detector(args.from_export, config=config,
+                                          device=args.device)
+        if list(detector.class_names) != list(loader.class_names):
+            # Order matters: class ids are positional.
+            raise SystemExit(
+                f"export classes {detector.class_names} do not match the "
+                f"dataset's {loader.class_names} (same names, same order)")
+    elif args.experiment:
+        detector = load_detector(config, loader, args.step,
+                                 average_last=args.average_checkpoints,
+                                 device=args.device)
+    else:
+        raise SystemExit("need --experiment (checkpoint dir) or "
+                         "--from-export (serving artifact)")
 
     sink = None
     dump: list = []

@@ -1,4 +1,9 @@
-"""The weight bridge: JAX export files and seeded random weights.
+"""The weight bridge: JAX export files and seeded random weights, and the
+``export`` CLI, which writes an experiment's checkpoint as one file:
+
+    python -m retinanet_tpu_torch.export --experiment E \
+        --backbone resnet_50_dense --scale 640 \
+        --class-names square,triangle,circle --out model.npz
 
 Both ``params_from_flax`` (JAX parameters) and ``init_params`` (seeded
 weights) give a ``state_dict`` that serves through ``infer.Detector`` and
@@ -167,3 +172,58 @@ def load_exported_detector(path: str, config: Optional[Config] = None,
     backbone and classes always come from the export."""
     from retinanet_tpu_torch.infer import Detector  # infer imports this
     return Detector.from_export(path, config=config, device=device)
+
+
+def main(argv=None):
+    """``python -m retinanet_tpu_torch.export``: the JAX CLI's flags, with
+    ``--device`` (where ``load_detector`` builds the model; the card unless
+    it says otherwise) in place of ``--platform``."""
+    import argparse
+    import logging
+
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser(
+        description="export a checkpoint as a single-file serving artifact")
+    parser.add_argument("--experiment", type=str, required=True)
+    parser.add_argument("--backbone", type=str, default="resnet_50")
+    parser.add_argument("--scale", type=int, default=600,
+                        help="serving canvas size recorded in the artifact")
+    parser.add_argument("--step", type=int, default=None)
+    parser.add_argument(
+        "--class-names", type=str, default=None,
+        help="comma-separated class names (order = training class ids)")
+    parser.add_argument(
+        "--dataset", type=str, nargs="+", default=None,
+        help="alternative to --class-names: take names from a dataset spec")
+    parser.add_argument("--out", type=str, required=True, metavar="PATH.npz")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="storage dtype for float params (bfloat16 "
+                             "halves the artifact size; serving computes "
+                             "in bf16 regardless)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to load the model on (default "
+                             "cuda)")
+    args = parser.parse_args(argv)
+
+    from retinanet_tpu_torch.config import _apply_dotted
+    from retinanet_tpu_torch.detect import _Names, _resolve_class_names
+    from retinanet_tpu_torch.evaluate import load_detector
+
+    class_names = _resolve_class_names(args)
+    config = Config()
+    for dotted, value in [
+        ("data.image_size", args.scale),
+        ("model.backbone", args.backbone),
+        ("train.experiment", args.experiment),
+    ]:
+        config = _apply_dotted(config, dotted, value)
+    detector = load_detector(config, _Names(class_names), args.step,
+                             device=args.device)
+    return export_model(detector.model.state_dict(), class_names,
+                        args.backbone, args.scale, args.out,
+                        dtype=args.dtype)
+
+
+if __name__ == "__main__":
+    main()

@@ -42,7 +42,7 @@ def build_backbone(name: str, quantize: bool = False,
                         quantize=quantize, remat=remat)
     if name in BACKBONES:
         raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP A8, other "
+            f"backbone {name!r} is not ported yet (ROADMAP A.6, other "
             "backbones); only 'resnet_50_dense' is")
     raise ValueError(f"unknown backbone {name!r}; choose from {BACKBONES}")
 

@@ -1,6 +1,8 @@
-"""Training step (port of ``retinanet_tpu/train.py``: ``TrainState``,
-``build_schedule``, ``build_optimizer``, ``make_train_step``,
-``create_train_state`` and ``benchmark_train``).
+"""Training (port of ``retinanet_tpu/train.py``): the step
+(``TrainState``, ``build_schedule``, ``build_optimizer``,
+``make_train_step``, ``create_train_state``), the loop around it
+(``CheckpointStore``, ``Trainer``, ``make_classmap_fn``), its benchmarks
+(``benchmark_train``, ``benchmark_train_pipeline``) and the CLI (``main``).
 
 One step on the model's device:
 
@@ -14,21 +16,34 @@ SGD, rmsprop, adam, ``clip_by_global_norm``), not taken from
 by the learning rate before its momentum trace.  Unlike JAX, the port
 updates the parameters and the optimizer buffers in place: the state's
 parameters are the model's own, and one step allocates no second copy.
-``Trainer.fit``, checkpoints and the data pipeline are later slices.
+So a checkpoint copies every tensor to the host before the next step runs
+and writes the files on a background thread, and a restore copies into
+the live tensors.
+
+``Trainer`` runs one process on one device: the JAX package's meshes
+(``--spatial``, several devices or processes) wait for ROADMAP A.7.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 import math
+import os
+import shutil
+import threading
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from retinanet_tpu_torch.config import Config, TrainConfig
+from retinanet_tpu_torch.config import Config, TrainConfig, parse_args
+from retinanet_tpu_torch.data.loaders.inferred import Inferred
+from retinanet_tpu_torch.data.pipeline import Batch, build_pipeline
 from retinanet_tpu_torch.models.layers import use_group_norm_kernel
 from retinanet_tpu_torch.models.retinanet import RetinaNet, l2_regularization
 from retinanet_tpu_torch.ops import assign
@@ -38,8 +53,12 @@ from retinanet_tpu_torch.ops.anchors import (Levels, build_levels,
 from retinanet_tpu_torch.ops.losses import detection_loss
 from retinanet_tpu_torch.ops.preprocess import maybe_normalize
 from retinanet_tpu_torch.utils.pytree import flatten_levels
-from retinanet_tpu_torch.utils.summaries import prob_histograms
+from retinanet_tpu_torch.utils.summaries import (MetricsWriter,
+                                                 prob_histograms, to_host)
 
+logger = logging.getLogger(__name__)
+
+DISTRIBUTED = "ROADMAP A.7 (torch.distributed)"
 Schedule = Callable[[int], float]
 _LOSS_KEYS = ("total_loss", "class_loss", "regr_loss", "regularization_loss")
 
@@ -210,6 +229,31 @@ def _class_iou_sums(targets: Tensor, probs: Tensor,
             torch.sum(torch.maximum(pred, targets) * w))
 
 
+def make_classmap_fn(model: RetinaNet, levels: Levels, config: Config):
+    """``fn(images, boxes, class_ids, box_mask) -> (true, pred)``: per
+    level, the GT and predicted fg (anchor, class) counts per cell [B,H,W]
+    for the classmap heat overlays (reference ``train.py:52-66``: the
+    classmap thresholded at prob 0.5), from the model's forward in eval
+    mode (``training=False``, no autograd)."""
+
+    @torch.no_grad()
+    def fn(images: Tensor, boxes: Tensor, class_ids: Tensor,
+           box_mask: Tensor):
+        images = maybe_normalize(images, config.data)
+        out = model(images, training=False)
+        cls_t, _, _ = assign.build_labels_batch(
+            boxes, class_ids, box_mask, tuple(images.shape[1:3]), levels,
+            model.num_classes, config.assign)
+        # The sigmoid in the head's dtype, as JAX's jax.nn.sigmoid.
+        pred = {pn: torch.sum(torch.sigmoid(c) > 0.5, dim=(-2, -1))
+                for pn, c in out["classifications"].items()}
+        true = {pn: torch.sum(t > 0.5, dim=(-2, -1))
+                for pn, t in cls_t.items()}
+        return true, pred
+
+    return fn
+
+
 def make_train_step(model: RetinaNet, levels: Levels, config: Config,
                     with_metrics: bool = True):
     """Build ``step_fn(state, images, boxes, class_ids, box_mask,
@@ -337,6 +381,589 @@ def create_train_state(model: RetinaNet, config: Config,
     return TrainState(0, named, opt_state)
 
 
+_PARAMS_FILE, _OPT_FILE = "params.pt", "opt_state.pt"
+
+
+def _host_copy(tensors):
+    """A host copy of every tensor in a (nested) list or dict."""
+    if isinstance(tensors, Tensor):
+        return tensors.detach().to("cpu", copy=True)
+    if isinstance(tensors, dict):
+        return {k: _host_copy(v) for k, v in tensors.items()}
+    if isinstance(tensors, list):
+        return [_host_copy(v) for v in tensors]
+    return tensors
+
+
+@torch.no_grad()
+def _copy_into(live, saved, what: str) -> None:
+    """Copy ``saved`` into the ``live`` tensors of the same structure."""
+    if isinstance(live, Tensor):
+        if not isinstance(saved, Tensor) or saved.shape != live.shape:
+            raise ValueError(f"checkpoint {what}: expected a tensor of shape "
+                             f"{tuple(live.shape)}, found {saved!r:.80}")
+        live.copy_(saved)
+        return
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or set(saved) != set(live):
+            raise ValueError(f"checkpoint {what}: keys differ from the "
+                             f"model's")
+        for k in live:
+            _copy_into(live[k], saved[k], f"{what}/{k}")
+        return
+    if not isinstance(saved, list) or len(saved) != len(live):
+        raise ValueError(f"checkpoint {what}: expected {len(live)} entries")
+    for i, (a, b) in enumerate(zip(live, saved)):
+        _copy_into(a, b, f"{what}/{i}")
+
+
+class CheckpointStore:
+    """Experiment-directory checkpoint access, decoupled from the Trainer.
+
+    The Trainer composes one for training; evaluate/export/detect construct
+    one directly, so serving-side restores don't inherit training-only
+    validations.  Layout: ``<experiment>/checkpoints/step_N/`` holding
+    ``params.pt`` (the step and the parameters by state_dict name) and
+    ``opt_state.pt`` (the step and the optimizer state), torch files read
+    with ``torch.load(weights_only=True)``; a params-only restore
+    (``restore_params``) never opens the optimizer's file.
+
+    Retention keeps the newest ``keep_checkpoints`` finalized ``step_N``
+    dirs and only ever runs after a save from THIS store — a restore-only
+    store (evaluate) never prunes someone else's experiment.
+
+    ``save`` copies every tensor to the host before it returns (the step
+    updates them in place), then writes the files on one background
+    thread into a directory whose name holds ``tmp`` and renames it to
+    ``step_N`` when complete, so ``_finalized_steps`` never lists a
+    half-written step.  ``wait_for_checkpoints`` joins the write.
+    """
+
+    def __init__(self, experiment: str, keep_checkpoints: int = 5):
+        self.experiment = experiment
+        self.keep_checkpoints = keep_checkpoints
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self._saved = False
+
+    @property
+    def checkpoint_dir(self) -> str:
+        return os.path.join(os.path.abspath(self.experiment), "checkpoints")
+
+    def save(self, state: TrainState):
+        """Host copy now, files in the background; at most one write in
+        flight (a second save first joins the first).
+
+        Pruning runs AFTER the write is started and only touches finalized
+        ``step_N`` directories, always retaining the newest
+        ``keep_checkpoints`` of them — so even with ``keep_checkpoints=1`` a
+        crash or a failed write never leaves zero restorable checkpoints.
+        """
+        self._join()
+        step = int(state.step)
+        host = {"params": {"step": step,
+                           "params": _host_copy(dict(state.params))},
+                "opt": {"step": step,
+                        "opt_state": _host_copy(dict(state.opt_state))}}
+        path = os.path.join(self.checkpoint_dir, f"step_{step}")
+        self._writer = threading.Thread(target=self._write,
+                                        args=(host, path), daemon=True)
+        self._writer.start()
+        self._saved = True
+        logger.info("saving checkpoint at step %d", step)
+        self._prune(keep=max(1, self.keep_checkpoints))
+
+    def _write(self, host: Dict[str, dict], path: str) -> None:
+        try:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(host["params"], os.path.join(tmp, _PARAMS_FILE))
+            torch.save(host["opt"], os.path.join(tmp, _OPT_FILE))
+            if os.path.isdir(path):  # a second save of one step replaces it
+                old = f"{path}.tmp-old-{os.getpid()}"
+                os.rename(path, old)
+                os.rename(tmp, path)
+                shutil.rmtree(old, ignore_errors=True)
+            else:
+                os.rename(tmp, path)
+        except BaseException as err:  # re-raised by _join in the caller
+            self._write_error = err
+
+    def _join(self) -> None:
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._write_error is not None:
+            err, self._write_error = self._write_error, None
+            raise RuntimeError("checkpoint write failed") from err
+
+    def _finalized_steps(self) -> list:
+        """Finalized step_N dirs on disk, ascending (no wait for a write in
+        flight — safe to call from pruning)."""
+        if not os.path.isdir(self.checkpoint_dir):
+            return []
+        steps = []
+        for name in os.listdir(self.checkpoint_dir):
+            if name.startswith("step_") and "tmp" not in name:
+                try:
+                    steps.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(steps)
+
+    def _prune(self, keep: int):
+        steps = self._finalized_steps()
+        for step in steps[:-keep] if keep > 0 else steps:
+            shutil.rmtree(
+                os.path.join(self.checkpoint_dir, f"step_{step}"),
+                ignore_errors=True)
+
+    def wait_for_checkpoints(self):
+        self._join()
+        # Now that the write in flight is finalized, enforce the exact
+        # retention count (save-time pruning keeps one extra while the
+        # newest save is still tmp-named).  Restore-only stores have
+        # nothing in flight and must never prune.
+        if self._saved:
+            self._prune(keep=max(1, self.keep_checkpoints))
+
+    def checkpoint_steps(self) -> list:
+        """All finalized checkpoint steps, ascending (waits for a write in
+        flight first)."""
+        self.wait_for_checkpoints()
+        return self._finalized_steps()
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        steps = self.checkpoint_steps()
+        return max(steps) if steps else None
+
+    def _load(self, step: int, name: str) -> dict:
+        return torch.load(os.path.join(self.checkpoint_dir, f"step_{step}",
+                                       name),
+                          map_location="cpu", weights_only=True)
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """Copy the latest (or the given) checkpoint into ``state``'s live
+        tensors, so the model and the state keep sharing storage."""
+        explicit = step is not None
+        step = step if step is not None else self.latest_checkpoint_step()
+        if step is None:
+            return state
+        path = os.path.join(self.checkpoint_dir, f"step_{step}")
+        if explicit and not os.path.isdir(path):
+            available = self.latest_checkpoint_step()
+            raise FileNotFoundError(
+                f"no checkpoint at step {step} in {self.checkpoint_dir} "
+                f"(latest available: {available})")
+        params = self._load(step, _PARAMS_FILE)["params"]
+        opt = self._load(step, _OPT_FILE)
+        _copy_into(dict(state.params), params, "params")
+        saved_opt = opt["opt_state"]
+        if set(saved_opt) != set(state.opt_state):
+            raise ValueError(f"checkpoint optimizer state {sorted(saved_opt)}"
+                             f" differs from the run's "
+                             f"{sorted(state.opt_state)}")
+        for key, live in state.opt_state.items():
+            if isinstance(live, list):
+                _copy_into(live, saved_opt[key], f"opt_state/{key}")
+            else:
+                state.opt_state[key] = saved_opt[key]
+        logger.info("restored checkpoint from step %d", step)
+        return TrainState(int(opt["step"]), state.params, state.opt_state)
+
+    def restore_params(self, params: Mapping[str, Tensor],
+                       step: Optional[int] = None) -> Dict[str, Tensor]:
+        """Params-only restore for SERVING (evaluate/export/detect): the
+        parameters of the latest (or the given) checkpoint as new host
+        tensors, checked against ``params`` by name and shape; ``params``
+        itself when there is no checkpoint.  The optimizer's file is never
+        read, so how the model was optimized (``--grad-clip-norm``, the
+        optimizer) does not matter to serving."""
+        step = step if step is not None else self.latest_checkpoint_step()
+        if step is None:
+            return dict(params)
+        restored = self._load(step, _PARAMS_FILE)["params"]
+        if set(restored) != set(params):
+            raise ValueError(
+                f"checkpoint step {step} holds parameters "
+                f"{sorted(set(restored) ^ set(params))[:3]}... that the "
+                f"model does not (or the reverse)")
+        for k, v in params.items():
+            if tuple(restored[k].shape) != tuple(v.shape):
+                raise ValueError(f"checkpoint step {step}: {k} has shape "
+                                 f"{tuple(restored[k].shape)}, the model "
+                                 f"{tuple(v.shape)}")
+        logger.info("restored params from step %d", step)
+        return restored
+
+
+def _world_size() -> int:
+    """Processes in this run: the ``torch.distributed`` group's size, or
+    the launcher's ``WORLD_SIZE``."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def refuse_distributed(config: Config) -> None:
+    """Raise ``NotImplementedError`` for every run the JAX package spreads
+    over a mesh: ``spatial > 1``, ``num_devices > 1``, several processes."""
+    if config.parallel.spatial > 1:
+        raise NotImplementedError(
+            f"spatial={config.parallel.spatial} (image height over a "
+            f"device mesh) waits for {DISTRIBUTED}")
+    if (config.parallel.num_devices or 1) > 1:
+        raise NotImplementedError(
+            f"num_devices={config.parallel.num_devices} waits for "
+            f"{DISTRIBUTED}; the port trains on one device")
+    if _world_size() > 1:
+        raise NotImplementedError(
+            f"a {_world_size()}-process run waits for {DISTRIBUTED}")
+
+
+class _Staged:
+    """One batch on its way to the device: the pinned host tensors, the
+    device tensors and the copy's event."""
+
+    def __init__(self, host: Tuple[Tensor, ...], device: Tuple[Tensor, ...],
+                 event: Optional["torch.cuda.Event"]):
+        self.host, self.device, self.event = host, device, event
+
+    def ready(self) -> Tuple[Tensor, ...]:
+        """The device tensors, usable on the current stream: it waits for
+        the copy, and the allocator learns that the stream uses them."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.device[0].device)
+            stream.wait_event(self.event)
+            for t in self.device:
+                t.record_stream(stream)
+        return self.device
+
+    def release(self) -> None:
+        """Drop the host buffers once the copy has ended."""
+        if self.event is not None:
+            self.event.synchronize()
+        self.host = None
+
+
+class HostToDevice:
+    """Batches to one device.  On a CUDA device each batch is pinned and
+    copied on a side stream, so the copy of batch k+1 runs while step k
+    does; on the CPU the arrays are wrapped as they are."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+
+    def stage(self, batch: Batch) -> _Staged:
+        arrays = (batch.images, batch.boxes, batch.class_ids, batch.box_mask)
+        host = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                     for a in arrays)
+        if self._stream is None:
+            return _Staged(host, tuple(t.to(self.device) for t in host),
+                           None)
+        host = tuple(t.pin_memory() for t in host)
+        with torch.cuda.stream(self._stream):
+            device = tuple(t.to(self.device, non_blocking=True)
+                           for t in host)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return _Staged(host, device, event)
+
+    def stream(self, batches) -> Iterator[Tuple[Tuple[Tensor, ...], Batch]]:
+        """(device_batch, host_batch) with one batch of copy lookahead:
+        batch k+1's copy is issued before batch k is yielded."""
+        pending = None
+        for batch in batches:
+            staged = self.stage(batch)
+            if pending is not None:
+                yield pending[0].ready(), pending[1]
+                pending[0].release()
+            pending = (staged, batch)
+        if pending is not None:
+            yield pending[0].ready(), pending[1]
+            pending[0].release()
+
+
+class Trainer:
+    """Epoch loop + checkpoints + metrics (reference ``train.py:246-277``)
+    on one device: the card unless the caller passes another."""
+
+    def __init__(self, config: Config, loader=None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.config = config
+        refuse_distributed(config)
+        if config.train.grad_accum > 1 and (
+                config.data.batch_size % config.train.grad_accum):
+            raise ValueError(
+                f"batch {config.data.batch_size} not divisible by "
+                f"grad_accum={config.train.grad_accum}")
+        if loader is None:
+            loader = Inferred(config.data.dataset[0],
+                              list(config.data.dataset[1:]))
+        self.loader = loader
+        self.device = torch.device(device)
+        self.levels = build_levels(config.anchors)
+        self.model = RetinaNet.from_config(
+            config.model, num_anchors=self.levels.num_anchors,
+            num_classes=loader.num_classes).to(self.device)
+        self.pipeline = build_pipeline(
+            loader, config.data, max_boxes=config.assign.max_boxes,
+            training=True, seed=config.train.seed)
+        self.transfer = HostToDevice(self.device)
+        self.writer = MetricsWriter(config.train.experiment)
+        self.checkpoints = CheckpointStore(config.train.experiment,
+                                           config.train.keep_checkpoints)
+        self._infer_fn = None
+
+    # -- checkpointing (delegates to CheckpointStore) ------------------------
+    @property
+    def checkpoint_dir(self) -> str:
+        return self.checkpoints.checkpoint_dir
+
+    def save_checkpoint(self, state: TrainState):
+        self.checkpoints.save(state)
+
+    def wait_for_checkpoints(self):
+        self.checkpoints.wait_for_checkpoints()
+
+    def checkpoint_steps(self) -> list:
+        return self.checkpoints.checkpoint_steps()
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        return self.checkpoints.latest_checkpoint_step()
+
+    def restore_checkpoint(self, state: TrainState,
+                           step: Optional[int] = None) -> TrainState:
+        return self.checkpoints.restore(state, step)
+
+    # -- image summaries -----------------------------------------------------
+    def write_image_summaries(self, state: TrainState, batch: Batch):
+        """GT vs predicted box overlays + classmap heat maps as PNGs under
+        ``<experiment>/summaries/step_N`` and TensorBoard images
+        (reference ``build_summary`` / ``draw_classmap``,
+        ``train.py:52-85,164-187``), for the first two images of a host
+        batch; nothing without cv2."""
+        try:
+            import cv2
+        except ImportError:
+            return  # before any device work: cv2-less hosts pay nothing
+        from retinanet_tpu_torch.infer import make_inference_fn
+        from retinanet_tpu_torch.utils.draw import (draw_bounding_boxes,
+                                                    draw_classmap)
+
+        if self._infer_fn is None:
+            self._infer_fn = make_inference_fn(
+                self.model, self.levels, self.config)
+            self._classmap_fn = make_classmap_fn(
+                self.model, self.levels, self.config)
+        n_draw = min(2, batch.images.shape[0])
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a[:n_draw])).to(
+                self.device)
+
+        images_dev = put(batch.images)
+        out = [t.cpu().numpy() for t in self._infer_fn(images_dev)]
+        boxes, scores, class_ids, valid = out
+        cm_true, cm_pred = (
+            {pn: v.cpu().numpy() for pn, v in maps.items()}
+            for maps in self._classmap_fn(images_dev, put(batch.boxes),
+                                          put(batch.class_ids),
+                                          put(batch.box_mask)))
+        step = int(state.step)
+        out_dir = os.path.join(self.config.train.experiment, "summaries",
+                               f"step_{step}")
+        os.makedirs(out_dir, exist_ok=True)
+        mean = np.asarray(self.config.data.mean)
+        std = np.asarray(self.config.data.std)
+        names = self.loader.class_names
+
+        def to_tb(tag, rgb):
+            ok, png = cv2.imencode(".png", (rgb[..., ::-1]))
+            if ok:
+                self.writer.add_image_png(tag, png.tobytes(),
+                                          rgb.shape[0], rgb.shape[1], step)
+
+        for i in range(n_draw):
+            if batch.images.dtype == np.uint8:  # device-normalized batches
+                img = batch.images[i].astype(np.float32) / 255.0
+            else:
+                img = np.clip(batch.images[i] * std + mean, 0, 1)
+            gt_valid = batch.box_mask[i]
+            gt = draw_bounding_boxes(img, batch.boxes[i][gt_valid],
+                                     batch.class_ids[i][gt_valid], names)
+            cv2.imwrite(os.path.join(out_dir, f"{i}_true.png"),
+                        gt[..., ::-1])
+            to_tb(f"boxes/{i}_true", gt)
+            pv = valid[i]
+            pred = draw_bounding_boxes(img, boxes[i][pv], class_ids[i][pv],
+                                       names, scores=scores[i][pv])
+            cv2.imwrite(os.path.join(out_dir, f"{i}_pred.png"),
+                        pred[..., ::-1])
+            to_tb(f"boxes/{i}_pred", pred)
+            # Per-level classmap heat overlays (reference train.py:52-66,
+            # 176-187): count of fg anchor-class slots per cell, GT vs
+            # predicted.
+            for pn in cm_true:
+                heat_t = draw_classmap(img, cm_true[pn][i])
+                heat_p = draw_classmap(img, cm_pred[pn][i])
+                cv2.imwrite(
+                    os.path.join(out_dir, f"{i}_classmap_{pn}_true.png"),
+                    heat_t[..., ::-1])
+                to_tb(f"classmap/{i}_{pn}_true", heat_t)
+                cv2.imwrite(
+                    os.path.join(out_dir, f"{i}_classmap_{pn}_pred.png"),
+                    heat_p[..., ::-1])
+                to_tb(f"classmap/{i}_{pn}_pred", heat_p)
+
+    # -- training ----------------------------------------------------------
+    def _device_batches(self, epoch: int):
+        """(device_batch, host_batch) stream with one batch of copy
+        lookahead (``HostToDevice.stream``; reference analog:
+        ``prefetch(1)`` at ``train.py:202``)."""
+        return self.transfer.stream(self.pipeline.prefetched(epoch))
+
+    def _initial_state(self) -> TrainState:
+        """Seeded weights (``train.seed``), the backbone from
+        ``init_backbone`` on a fresh start, then the latest checkpoint."""
+        from retinanet_tpu_torch.export import init_params
+
+        cfg = self.config
+        params = init_params(cfg, torch.Generator().manual_seed(
+            cfg.train.seed), self.loader.num_classes)
+        if cfg.train.init_backbone and self.latest_checkpoint_step() is None:
+            # Fresh start only: a resumed checkpoint always wins over the
+            # imported init (its backbone already trained past it).
+            from retinanet_tpu_torch.utils.pretrained import load_pretrained
+            params, report = load_pretrained(
+                params, cfg.train.init_backbone, backbone=cfg.model.backbone)
+            if report is not None:
+                logger.info(
+                    "init backbone from %s: %d by-name + %d by-shape "
+                    "matches, 0 unmatched", cfg.train.init_backbone,
+                    len(report["matched_by_name"]),
+                    len(report["matched_by_shape"]))
+            else:
+                logger.info("init backbone from %s (exact npz restore)",
+                            cfg.train.init_backbone)
+        state = create_train_state(self.model, cfg, params)
+        return self.restore_checkpoint(state)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, epochs: Optional[int] = None,
+            steps_per_epoch: Optional[int] = None) -> TrainState:
+        cfg = self.config
+        epochs = epochs if epochs is not None else cfg.train.epochs
+        steps_per_epoch = (steps_per_epoch if steps_per_epoch is not None
+                           else cfg.train.steps_per_epoch)
+        state = self._initial_state()
+        py_step = int(state.step)
+
+        # Two variants: the hot-path step skips the diagnostic full-tensor
+        # reductions; the full step runs only on logged steps.
+        step_light = make_train_step(self.model, self.levels, cfg,
+                                     with_metrics=False)
+        step_full = make_train_step(self.model, self.levels, cfg,
+                                    with_metrics=True)
+        step_gen = torch.Generator(self.device).manual_seed(
+            cfg.train.seed + 1)
+        t_last = time.time()
+        steps_since_log = 0  # actual steps elapsed since t_last: the first
+        # logged step (step 1, which also pays the warm-up) divides by 1,
+        # not log_every, so metrics.jsonl never starts with a made-up rate
+        # Optional torch.profiler capture of N steps (train.profile_steps /
+        # --profile N), from the third step of this run on, past the first
+        # call of each step variant.
+        profile_from = (py_step + 3 if cfg.train.profile_steps > 0
+                        else None)
+        profile_dir = os.path.join(cfg.train.experiment, "profile")
+        profiler = None
+        for epoch in range(epochs):
+            logger.info("epoch %d", epoch)
+            # closing(): a steps-per-epoch break must unwind the pipeline
+            # generators deterministically (producer thread + worker pool),
+            # not whenever GC notices (Pipeline.prefetched).
+            with contextlib.closing(self._device_batches(epoch)) as batches:
+              for i, (device_batch, batch) in enumerate(batches):
+                if steps_per_epoch is not None and i >= steps_per_epoch:
+                    break
+                step = py_step + 1
+                if profile_from is not None and profiler is None \
+                        and step == profile_from:
+                    self._sync()
+                    profiler = _start_profiler(self.device)
+                    logger.info("profiling %d steps -> %s",
+                                cfg.train.profile_steps, profile_dir)
+                # Log on cadence and always on the first step, so short runs
+                # still produce metrics records.
+                will_log = step % cfg.train.log_every == 0 or step == 1
+                step_fn = step_full if will_log else step_light
+                state, metrics = step_fn(state, *device_batch, step_gen)
+                py_step = step
+                steps_since_log += 1
+                if profiler is not None and step >= profile_from \
+                        + cfg.train.profile_steps - 1:
+                    self._sync()
+                    _stop_profiler(profiler, profile_dir, profile_from, step)
+                    profiler, profile_from = None, None
+
+                if will_log:
+                    metrics = to_host(metrics)
+                    now = time.time()
+                    metrics["images_per_sec"] = (
+                        cfg.data.batch_size * steps_since_log
+                        / max(now - t_last, 1e-9))
+                    t_last = now
+                    steps_since_log = 0
+                    self.writer.write(step, metrics)
+                    logger.info(
+                        "step %d loss %.4f (class %.4f regr %.4f reg %.4f)",
+                        step, float(metrics["total_loss"]),
+                        float(metrics["class_loss"]),
+                        float(metrics["regr_loss"]),
+                        float(metrics["regularization_loss"]))
+                if step % cfg.train.checkpoint_every == 0:
+                    self.save_checkpoint(state)
+                    if cfg.train.image_summaries:
+                        self.write_image_summaries(state, batch)
+        if profiler is not None:  # run ended inside the requested window
+            self._sync()
+            _stop_profiler(profiler, profile_dir, profile_from, py_step)
+        self.save_checkpoint(state)
+        self.wait_for_checkpoints()
+        return state
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, first: int, last: int
+                   ) -> str:
+    """Stop and write the Chrome trace; returns its path."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_steps_{first}-{last}.json")
+    profiler.export_chrome_trace(path)
+    logger.info("wrote profile trace %s", path)
+    return path
+
+
 def synthetic_batch(batch_size: int, image_size: int, max_boxes: int,
                     device: Union[str, torch.device]
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -403,3 +1030,86 @@ def benchmark_train(config: Config, batch_size: int = 32, steps: int = 10,
         "final_loss": loss,
         "finite": math.isfinite(loss),
     }
+
+
+def benchmark_train_pipeline(config: Config, batch_size: int = 32,
+                             steps: int = 10, warmup: int = 2,
+                             num_classes: int = 80,
+                             num_images: Optional[int] = None,
+                             device: Union[str, torch.device] = "cuda"
+                             ) -> Dict[str, float]:
+    """Train-step throughput with the LIVE host pipeline: in-memory shapes
+    dataset → threaded decode/pad → uint8 batches pinned and copied on a
+    side stream, double-buffered against the running step
+    (``HostToDevice``).  :func:`benchmark_train` feeds the same device
+    batch every step and so never measures the host and the copy; this is
+    the end-to-end training number.
+
+    ``num_classes`` defaults to 80 so the compute matches the serving
+    benchmark (shapes only emits class ids 0-2; assignment is
+    id-agnostic).  Needs a CUDA device: a time taken on the CPU is not the
+    card's."""
+    from retinanet_tpu_torch.data.loaders.shapes import Shapes
+    from retinanet_tpu_torch.export import init_params
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"benchmark_train_pipeline times the card; got "
+                           f"device {device}")
+    levels = build_levels(config.anchors)
+    size = config.data.image_size
+    loader = Shapes(None, num_images or max(batch_size * 4, 64),
+                    (size, size))
+    model = RetinaNet.from_config(config.model, levels.num_anchors,
+                                  num_classes=num_classes).to(device)
+    data_cfg = dataclasses.replace(config.data, batch_size=batch_size)
+    pipeline = build_pipeline(loader, data_cfg,
+                              max_boxes=config.assign.max_boxes,
+                              training=True, seed=0)
+    state = create_train_state(
+        model, config,
+        init_params(config, torch.Generator().manual_seed(0), num_classes))
+    step_fn = make_train_step(model, levels, config, with_metrics=False)
+    gen = torch.Generator(device).manual_seed(1)
+
+    def batches():
+        epoch = 0
+        while True:
+            yield from pipeline.prefetched(epoch)
+            epoch += 1
+
+    metrics = None
+    with contextlib.closing(HostToDevice(device).stream(batches())) as feed:
+        for _ in range(warmup):
+            state, metrics = step_fn(state, *next(feed)[0], gen)
+        metrics["total_loss"].item()
+
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, metrics = step_fn(state, *next(feed)[0], gen)
+        metrics["total_loss"].item()
+        total = time.perf_counter() - t0
+    return {
+        "images_per_sec": batch_size * steps / total,
+        "step_ms": total / steps * 1e3,
+        "batch_size": batch_size,
+        "image_size": size,
+    }
+
+
+def main(argv=None):
+    """``python -m retinanet_tpu_torch.train``: the JAX package's flags
+    (``config.build_parser``), on the card unless ``--device`` says
+    otherwise."""
+    from retinanet_tpu_torch.utils.cli import log_args
+
+    logging.basicConfig(level=logging.INFO)
+    config, device = parse_args(argv)
+    log_args(config)
+    trainer = Trainer(config, device=device)
+    return trainer.fit()
+
+
+if __name__ == "__main__":
+    main()

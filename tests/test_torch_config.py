@@ -13,7 +13,8 @@ from retinanet_tpu_torch import config as tcfg
 from retinanet_tpu_torch.ops import anchors as tanchors
 
 _COPIED = ("AnchorConfig", "AssignConfig", "LossConfig", "ModelConfig",
-           "DataConfig", "TrainConfig", "NMSConfig", "Config")
+           "DataConfig", "TrainConfig", "NMSConfig", "ParallelConfig",
+           "Config")
 
 
 def _defaults(cls):
@@ -28,13 +29,11 @@ def _defaults(cls):
 
 @pytest.mark.parametrize("name", _COPIED)
 def test_config_dataclass_matches_jax(name):
-    """Same field names in the same order, same defaults.  ``Config`` omits
-    only ``parallel`` (the JAX mesh; the data-parallel slice adds its
-    own)."""
+    """Same field names in the same order, same defaults, ``Config``'s
+    ``parallel`` (``ParallelConfig``) included."""
     want = _defaults(getattr(jcfg, name))
     got = _defaults(getattr(tcfg, name))
     if name == "Config":
-        want.pop("parallel")
         for key in want:
             assert dataclasses.asdict(got[key]) == dataclasses.asdict(
                 want[key]), key

@@ -9,6 +9,8 @@ Every case runs at ≤ 64 px on ≤ 8 images."""
 
 import json
 import os
+import threading
+import time
 import xml.sax.saxutils
 
 import numpy as np
@@ -223,6 +225,29 @@ def test_pipeline_epoch_equals_jax(mode):
     assert_samples_equal(next(prefetched)._asdict(),
                          next(iter(want.epoch(0)))._asdict())
     prefetched.close()
+
+
+def test_prefetched_epoch_ends_for_a_slow_consumer():
+    """A consumer slower than the producer reads a whole prefetched epoch
+    and sees it end: the producer finishes with the queue full, and the
+    end of the epoch must still reach the consumer."""
+    config = DataConfig(image_size=64, batch_size=2, prefetch=2,
+                        num_workers=2)
+    pipe = pipeline.build_pipeline(_Listed(_samples(6) + _samples(7)),
+                                   config, max_boxes=4, training=True,
+                                   seed=11)
+    got = []
+
+    def consume():
+        for batch in pipe.prefetched(0):
+            time.sleep(0.2)  # the producer refills the queue meanwhile
+            got.append(batch)
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    reader.join(timeout=30)
+    assert not reader.is_alive(), "the epoch never ended"
+    assert len(got) == len(pipe) == len(list(pipe.epoch(0)))
 
 
 def test_compute_mean_std_equals_jax(capsys):

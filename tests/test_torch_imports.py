@@ -89,7 +89,9 @@ assert not leaked, leaked
 for name in ("train", "evaluate", "detect", "export", "native", "eval_coco",
              "eval_voc", "data.pipeline", "data.stats", "data.loaders.coco",
              "data.loaders.pascal", "data.loaders.shapes",
-             "data.loaders.inferred", "utils.draw"):
+             "data.loaders.inferred", "data.loaders.smoke", "utils.draw",
+             "utils.tb_events", "utils.summaries", "utils.pretrained",
+             "utils.cli"):
     assert "retinanet_tpu_torch." + name in names, (name, names)
 print(len(names))
 """

@@ -107,12 +107,12 @@ def test_export_roundtrip_into_port(flat, tmp_path, dtype):
 
 
 def test_unported_backbones_raise():
-    """The other backbones still raise (ROADMAP A8); int8 serving of the
+    """The other backbones still raise (ROADMAP A.6); int8 serving of the
     flagship now builds, with every block conv quantized and the stem
     float."""
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
         build_backbone("mobilenet_v2")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
         build_backbone("mobilenet_v2", quantize=True)
     net = build_backbone("resnet_50_dense", quantize=True)
     convs = [m for m in net.modules() if hasattr(m, "quantize")

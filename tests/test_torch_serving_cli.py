@@ -4,12 +4,15 @@ line, the metrics that ``evaluate_model`` returns for the same detector
 (with buckets, per-class AP, a detection dump and the VOC protocol), and
 exits naming the order when the export's classes are reversed; ``detect``
 loads its batch bitwise as JAX's ``_load_batch`` does and dumps what
-``Detector.detect`` gives on the same batch; the flags whose port has not
-landed raise, naming their ROADMAP item."""
+``Detector.detect`` gives on the same batch; both CLIs serve an
+experiment's checkpoints (``--experiment``, ``--step``,
+``--average-checkpoints``) as they serve an export of the same weights;
+the flags whose port has not landed raise, naming their ROADMAP item."""
 
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from retinanet_tpu_torch.data.loaders.inferred import Inferred
 from retinanet_tpu_torch.eval_coco import evaluate_model
 from retinanet_tpu_torch.export import (export_model, init_params,
                                         load_exported_detector)
+from retinanet_tpu_torch.train import CheckpointStore, TrainState
 
 torch.set_num_threads(2)
 
@@ -33,7 +37,8 @@ NAMES = ["square", "triangle", "circle"]
 def artifacts(tmp_path_factory):
     """Exports of one set of He-scaled weights (numpy seeded; the π prior
     would put every score at one value) at 64 px: with the shapes classes
-    in order, and reversed."""
+    in order, and reversed; and an experiment holding the same weights as
+    the checkpoints of steps 1, 2 and 3."""
     config = Config(model=ModelConfig(backbone="resnet_50_dense",
                                       num_classes=3))
     rng = np.random.RandomState(0)
@@ -51,7 +56,13 @@ def artifacts(tmp_path_factory):
         path = str(root / f"{name}.npz")
         export_model(state, names, "resnet_50_dense", 64, path)
         paths.append(path)
-    return paths
+    experiment = str(root / "experiment")
+    store = CheckpointStore(experiment)
+    for step in (1, 2, 3):
+        store.save(TrainState(step, state, {"count": 0}))
+    store.wait_for_checkpoints()
+    yield paths + [experiment]
+    shutil.rmtree(root)  # three checkpoints and two exports, ~750 MB
 
 
 @pytest.mark.parametrize("protocol", ["coco", "voc"])
@@ -98,10 +109,23 @@ def test_evaluate_cli_refuses_reordered_classes(artifacts, tmp_path):
     (["--experiment", "exp"], "A.4"), (["--step", "3"], "A.4"),
     (["--average-checkpoints", "2"], "A.4"), (["--data-parallel"], "A.7"),
     (["--spatial", "2"], "A.7")])
-def test_evaluate_unported_flags_raise(artifacts, flags, item):
-    with pytest.raises(SystemExit, match=item):
-        evaluate.main(["--dataset", "shapes", "unused", "2", "64",
-                       "--from-export", artifacts[0], *flags])
+def test_evaluate_unported_flags_raise(artifacts, flags, item, capsys):
+    """The A.7 flags raise naming A.7.  The checkpoint flags, ported in
+    A.4, serve the experiment (``exp`` standing for it) and print the
+    metrics of the export of the same weights."""
+    dataset = ["--dataset", "shapes", "unused", "2", "64", "--device", "cpu"]
+    if item == "A.7":
+        with pytest.raises(SystemExit, match=item):
+            evaluate.main([*dataset, "--from-export", artifacts[0], *flags])
+        return
+    evaluate.main([*dataset, "--from-export", artifacts[0]])
+    want = capsys.readouterr().out
+    flags = [artifacts[2] if f == "exp" else f for f in flags]
+    if "--experiment" not in flags:
+        flags = ["--experiment", artifacts[2], *flags]
+    evaluate.main([*dataset, *flags, "--backbone", "resnet_50_dense",
+                   "--scale", "64"])
+    assert capsys.readouterr().out == want
 
 
 @pytest.fixture
@@ -158,6 +182,25 @@ def test_detect_cli_dumps_detector_detect(artifacts, images, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--experiment", "exp"], ["--step", "1"],
                                    []])
-def test_detect_unported_flags_raise(images, flags):
-    with pytest.raises(SystemExit, match="A.4"):
-        detect.main([*images, "--device", "cpu", *flags])
+def test_detect_unported_flags_raise(artifacts, images, tmp_path, flags):
+    """With neither ``--experiment`` nor ``--from-export`` detect raises;
+    ``--experiment`` (``exp`` standing for it) and ``--step``, ported in
+    A.4, dump the detections of the export of the same weights."""
+    if not flags:
+        with pytest.raises(SystemExit, match="need --experiment"):
+            detect.main([*images, "--device", "cpu", *flags])
+        return
+    dumps = [str(tmp_path / "export.json"), str(tmp_path / "ckpt.json")]
+    detect.main([*images, "--from-export", artifacts[0], "--device", "cpu",
+                 "--score-threshold", "0.1", "--dump-json", dumps[0]])
+    flags = [artifacts[2] if f == "exp" else f for f in flags]
+    if "--experiment" not in flags:
+        flags = ["--experiment", artifacts[2], *flags]
+    detect.main([*images, *flags, "--backbone", "resnet_50_dense", "--scale",
+                 "64", "--class-names", ",".join(NAMES), "--device", "cpu",
+                 "--score-threshold", "0.1", "--dump-json", dumps[1]])
+    records = []
+    for dump in dumps:
+        with open(dump) as f:
+            records.append(json.load(f))
+    assert records[1] == records[0] and len(records[0]) > 0
