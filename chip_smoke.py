@@ -114,7 +114,27 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    on three PNG files (1 B2 launch per batch, detections and annotated
    images); the kernel path's loop over 16 images under
    ``torch.profiler`` (device busy, idle share);
-15. fit (last): the training loop as a user drives it
+15. backbones: ResNeXt-50 (the default ``resnet_50``), MobileNetV2 and
+   DenseNet-121/169 through ``Detector`` at 640 px, 80 classes, bf16, b8,
+   on seeded weights (BACKBONES): on the plain path (1 B2 launch a
+   batch), with every GroupNorm on B4 (its launches equal the gated
+   GroupNorm calls, each call within B4_REL of its plain version, the
+   heads at least as close to the float32 model as the eager
+   GroupNorm's) and int8 (BACKBONE_B6 B6 + 1 B2 launches, the heads
+   within HEAD_RTOL/HEAD_ATOL of the same model on B6's plain version,
+   their distance to the float32 model logged); B6 bitwise its plain
+   version at every distinct int8 conv (grouped ones as block-diagonal
+   dense, C and F padded to 64), each timed beside its bound; images/s
+   and p50 at b8 and b128 on the three paths, MFU of the useful work
+   (and as run), the training step at b8 at dropout 0.2 and 0; one
+   training step with dropout 0.2 with and without remat from one seed
+   (REMAT_*), and the host time of a forward's dropout generators;
+   ResNeXt-50's grouped 3×3 as it runs
+   against ``F.conv2d(groups=32)``; and ResNeXt-50 through the training
+   CLI at its default ``--backbone`` (BACKBONE_FIT_*: a resume, finite
+   losses, a falling data loss), ``evaluate --experiment`` and ``detect
+   --experiment``;
+16. fit (last): the training loop as a user drives it
    (``train.parse_args`` and ``Trainer.fit``, what ``train.main`` does,
    with a checkpoint every 100 steps) on the JAX package's shapes-200
    convergence setup at 320 px (FIT_*): the kernel path
@@ -132,8 +152,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``Trainer.write_image_summaries`` (24 PNGs).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
-entry,serving,decode,eval,training,timing,breakdown,fit``) and prints no result
-lines: for a first call after a kernel change.  ``--phases parent`` (not
+entry,serving,decode,eval,training,timing,breakdown,backbones,fit``) and
+prints no result lines: for a first call after a kernel change.  ``--phases parent`` (not
 in the default run) compares kernels with a parent commit's, each whose
 module is in ``parent_kernels/`` (git-ignored): B1 and B5
 (``bottleneck.py``, within B1's bound, timed in turns, B1 by launch
@@ -159,6 +179,7 @@ import json
 import logging
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -178,9 +199,9 @@ from retinanet_tpu_torch.export import (export_model, init_params,
 from retinanet_tpu_torch.infer import (Detector, benchmark,
                                        forward_gflops_per_image)
 from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
-                                               ConvGN, GroupNorm,
-                                               group_norm, max_pool_same,
-                                               resolve_groups,
+                                               ConvGN, Dropout, DropoutKeys,
+                                               GroupNorm, group_norm,
+                                               max_pool_same, resolve_groups,
                                                use_group_norm_kernel)
 from retinanet_tpu_torch.models import resnet
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
@@ -192,6 +213,7 @@ from retinanet_tpu_torch.ops import int8_conv as b6
 from retinanet_tpu_torch.ops import nms as b2
 from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
+from retinanet_tpu_torch.ops.grouped import block_diagonal
 from retinanet_tpu_torch.train import (benchmark_train,
                                        benchmark_train_pipeline,
                                        create_train_state, make_train_step,
@@ -318,7 +340,8 @@ STEM = (320, 320, 64)
 # than the host takes to enqueue the timed calls.
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
-          "decode", "eval", "training", "timing", "breakdown", "fit")
+          "decode", "eval", "training", "timing", "breakdown", "backbones",
+          "fit")
 # The eval phase: ``evaluate.main`` on a 640-px shapes set of EVAL_IMAGES
 # images at batch EVAL_BATCH, from an export of seeded ``init_params``
 # weights (resnet_50_dense, the three shapes classes), on each path: its
@@ -1058,8 +1081,9 @@ def check_int8_serving(device):
     with torch.inference_mode():
         got = detector.model(images)
         b6.int8_conv = (lambda x, kernel, strides=1, out_dtype=None,
-                        weights=None: b6.int8_conv_plain(
-                            x, kernel, strides, out_dtype or x.dtype))
+                        weights=None, groups=1: b6.int8_conv_plain(
+                            x, kernel, strides, out_dtype or x.dtype,
+                            groups=groups))
         try:
             want = detector.model(images)
         finally:
@@ -1108,7 +1132,8 @@ def check_b6(device, shapes) -> float:
     for key, dtype in (((2, 75, 57, 64, 64, 3, 2), torch.bfloat16),
                        ((2, 75, 57, 64, 64, 3, 1), torch.bfloat16),
                        ((2, 75, 57, 64, 64, 1, 2), torch.bfloat16),
-                       ((2, 75, 57, 64, 128, 3, 2), torch.float32)):
+                       ((2, 75, 57, 64, 128, 3, 2), torch.float32),
+                       ((2, 75, 57, 24, 40, 3, 2), torch.float32)):
         x, kernel = int8_case(key, gen, device)
         x = x.to(dtype)
         s = key[-1]
@@ -1124,6 +1149,8 @@ def check_b6(device, shapes) -> float:
             raise AssertionError(f"B6 differs from its plain version at "
                                  f"{key}, {dtype}")
         del x, kernel, ref, out
+    # The widened geometry (B6_WIDENED): C and F padded, grouped kernels.
+    b6_new_shapes(device, dict.fromkeys(B6_WIDENED, 0), {})
     # The JAX entry point, with bias and relu, at a head conv's shape.
     x, kernel = int8_case((8, 80, 80, 256, 256, 3, 1), gen, device)
     w = kernel.permute(2, 3, 1, 0)
@@ -2101,7 +2128,8 @@ def time_b6(device, int8_shapes, gen):
         x, kernel = int8_case(key, gen, device)
         wts = b6.prepare_weights(kernel)
         ho, wo = -(-h // s), -(-w // s)
-        x_q = torch.empty(x.shape, dtype=torch.int8, device=device)
+        x_q = torch.empty(b6.xq_bytes(x.shape), dtype=torch.int8,
+                          device=device)
         out = torch.empty(b, ho, wo, f, dtype=torch.bfloat16, device=device)
         work = b6.scratch(device)[0]
 
@@ -2584,18 +2612,28 @@ def parent_b1_b5(device, gen):
 def parent_b6(device, gen, int8_shapes):
     """B6 at every int8 conv shape against the parent's: end to end, and
     bitwise with the parent's kernels given this tree's s_x and prepared
-    weights.  Also logs whether PyTorch's CUDA division by a Python scalar
-    equals the true quotient (how an earlier tree divided s_x and s_w)."""
+    weights; each conv with prepared weights timed in turns (device ms,
+    queued), summed over the forward's convs.  Also logs whether
+    PyTorch's CUDA division by a Python scalar equals the true quotient
+    (how an earlier tree divided s_x and s_w)."""
     old6 = parent_module("int8_conv")
     t = torch.rand(1 << 20, generator=gen).to(device) * 100
     log("parent-scalar-division",
         differs_share=(t / 127.0 != t / torch.full_like(t, 127.0))
         .float().mean().item())
-    ends = 0
+    ends, turns = 0, {"parent": [0.0, 0.0], "this": [0.0, 0.0]}
     for key in sorted(int8_shapes):
         x, kernel = int8_case(key, gen, device)
         s = key[-1]
         wts = b6.prepare_weights(kernel)
+        ms = in_turns({"parent": lambda: old6.int8_conv(x, kernel, s,
+                                                        weights=wts),
+                       "this": lambda: b6.int8_conv(x, kernel, s,
+                                                    weights=wts)},
+                      10, queued=True)
+        for who, (a, b) in ms.items():
+            turns[who][0] += int8_shapes[key] * a
+            turns[who][1] += int8_shapes[key] * b
         new = b6.int8_conv(x, kernel, s, weights=wts)
         old = old6.int8_conv(x, kernel, s)
         s_new = b6.quantize_activations(x)
@@ -2620,7 +2658,8 @@ def parent_b6(device, gen, int8_shapes):
             raise AssertionError(f"B6 differs from the parent's kernels at "
                                  f"{key}")
         del x, kernel, wts, new, old, same_inputs
-    log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends)
+    log("parent-b6-total", shapes=len(int8_shapes), bitwise_end_to_end=ends,
+        device_ms_per_forward_in_turns=turns)
 
 
 def in_turns(calls, iters, queued=False):
@@ -3443,6 +3482,513 @@ def fit_spread(device):
                 gaps=gaps)
 
 
+# The backbones phase: the four backbones beside the dense flagship
+# (``resnet_50``, ResNeXt-50 32×4d, the default; ``mobilenet_v2``;
+# ``densenet_121``/``densenet_169``) served through ``Detector`` at 640 px,
+# 80 classes, bf16, on seeded ``init_params`` weights, on the plain path,
+# with every GroupNorm on B4, and with int8 convs (B6): launches per batch
+# gated (BACKBONE_B6 B6 and 1 B2 per int8 forward, 1 B2 per batch
+# otherwise), each B4 call of the model within B4_REL of its plain version,
+# the heads with B4 at least as close to the float32 model as the eager
+# GroupNorm's (TRAIN_TRUTH_FACTOR/SLACK), the int8 heads within
+# HEAD_RTOL/HEAD_ATOL of the same model on B6's plain version, and B6
+# bitwise its plain version at every distinct int8 conv of each backbone.
+BACKBONES = ("resnet_50", "mobilenet_v2", "densenet_121", "densenet_169")
+BACKBONE_B6 = {"resnet_50": 59, "mobilenet_v2": 41, "densenet_121": 126,
+               "densenet_169": 174}
+# B6 beyond the 640-px models' shapes, (B, H, W, C, F, k, stride, groups):
+# C and F below 64 and not multiples of it (x_q and w_q zero-padded, the
+# store predicated), on odd sides at stride 1 and 2, and cardinality-32
+# grouped convs (run as their block-diagonal dense form) at ResNeXt-50's
+# widest and at stride 2; and more than 65535 row tiles of 128 output pixels
+# (MobileNetV2's first expand conv at batch 128 has 102400).
+B6_WIDENED = ((2, 75, 57, 24, 16, 1, 1, 1), (2, 75, 57, 16, 96, 3, 2, 1),
+              (2, 75, 57, 40, 136, 1, 1, 1), (2, 75, 57, 136, 40, 3, 1, 1),
+              (2, 20, 20, 1024, 1024, 3, 1, 32),
+              (2, 75, 57, 256, 256, 3, 2, 32),
+              (90, 320, 320, 8, 16, 1, 1, 1))
+# One training step at batch 8 (dropout 0.2) with and without remat, from
+# one seed: each parameter's update (−lr·gradient at step 1) within
+# REMAT_REL of the other's (‖Δ‖₂/‖ref‖₂, leaves with max|ref| ≥
+# TRAIN_LEAF_MIN): the recomputation repeats the forward, dropout masks
+# included, and cuDNN's weight gradients may sum in another order; and a
+# step from another dropout seed must part by more than REMAT_SEED_FACTOR ×
+# that, so the masks do matter.
+REMAT_REL, REMAT_SEED_FACTOR = 1e-2, 10.0
+# ResNeXt-50's training loop: BACKBONE_FIT_STEPS steps at FIT_SIZE px, batch
+# FIT_BATCH, on BACKBONE_FIT_IMAGES shapes images (epochs of all of them),
+# in two invocations of half as many (the second resumes), then
+# ``evaluate --experiment`` and ``detect --experiment`` on its checkpoint.
+BACKBONE_FIT_STEPS, BACKBONE_FIT_IMAGES = 30, 80
+# The grouped 3×3 of ResNeXt-50's four stages at batch 8 (H, W, width): as
+# the block-diagonal dense conv it runs as, against F.conv2d(groups=32).
+GROUPED_3X3 = ((160, 160, 128), (80, 80, 256), (40, 40, 512),
+               (20, 20, 1024))
+
+
+def backbone_config(backbone, batch=8, quantize="none", **model):
+    config = Config()
+    return config.replace(
+        model=dataclasses.replace(config.model, backbone=backbone,
+                                  quantize=quantize, **model),
+        data=dataclasses.replace(config.data, image_size=SIZE,
+                                 batch_size=batch),
+        nms=dataclasses.replace(config.nms, use_approx_top_k=True))
+
+
+def counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after (synchronised): (its result, {kernel: launches})."""
+    counters = eval_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def check_detections(label, out, batch=8):
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out.boxes, out.scores))
+    if not finite or tuple(out.boxes.shape) != (batch, 1000, 4):
+        raise AssertionError(f"{label}: bad detections")
+
+
+def b4_calls_vs_plain(model, images):
+    """One forward of ``model`` (every GroupNorm on B4) with each B4 call
+    held to its plain version on the model's activations (forward hooks):
+    {(C, groups): [calls, worst max |Δ|]}; raises past B4_REL."""
+    found, over = {}, []
+
+    def hook(module, inputs, output):
+        x = inputs[0]
+        n, c, h, w = x.shape
+        if h * w * c < GN_KERNEL_MIN_ELEMENTS:
+            return
+        groups = resolve_groups(c, module.groups)
+        ref = b4.fused_group_norm_act_plain(
+            x.permute(0, 2, 3, 1), module.gamma, module.beta, groups,
+            module.eps, module.activation).permute(0, 3, 1, 2).float()
+        err = (output.float() - ref).abs()
+        if bool((err > B4_REL[x.dtype] * ref.abs().clamp(min=1.0)).any()):
+            over.append((h, w, c, groups))
+        entry = found.setdefault((c, groups), [0, 0.0])
+        entry[0] += 1
+        entry[1] = max(entry[1], err.max().item())
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, GroupNorm)]
+    with torch.inference_mode():
+        model(images)
+    for h in hooks:
+        h.remove()
+    if over:
+        raise AssertionError(f"B4 disagrees with its plain version at "
+                             f"{over}")
+    return found
+
+
+def int8_conv_shapes(model, images):
+    """{(B, H, W, C, F, k, stride, groups): convs per forward} of one
+    forward's int8 convs (forward pre-hooks)."""
+    shapes = {}
+
+    def record(module, inputs):
+        b, c, h, w = inputs[0].shape
+        key = (b, h, w, c, module.kernel.shape[0], module.kernel_size,
+               module.strides, module.feature_group_count)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, Conv) and m.quantize]
+    with torch.inference_mode():
+        model(images)
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def b6_new_shapes(device, shapes, timed):
+    """B6 bitwise its plain version (with ``groups``) at each shape of
+    ``shapes`` not yet in ``timed``, in one call with weights quantized in
+    the call and in one with them prepared; each timed with prepared
+    weights (the whole conv and, queued, its GEMM alone) beside its bound
+    at the int8 peak.  Adds {shape: fields} to ``timed``."""
+    gen = torch.Generator().manual_seed(9)
+    for key in sorted(set(shapes) - set(timed)):
+        b, h, w, c, f, k, s, g = key
+        x = torch.randn(b, h, w, c, generator=gen).to(torch.bfloat16)
+        kernel = he_kernel((f, c // g, k, k), gen)
+        x, kernel = x.to(device), kernel.to(device)
+        wts = b6.prepare_weights(kernel, g)
+        ref = b6.int8_conv_plain(x, kernel, s, torch.bfloat16, groups=g)
+        out = b6.int8_conv(x, kernel, s, groups=g)
+        again = b6.int8_conv(x, kernel, s, weights=wts, groups=g)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref)) and bool(torch.equal(again, ref))
+        ho, wo = out.shape[1:3]
+        x_q = torch.empty(b6.xq_bytes(x.shape), dtype=torch.int8,
+                          device=device)
+        y = torch.empty_like(out)
+        work = b6.scratch(device)[0]
+        conv_ms = cuda_time_ms(lambda: b6.int8_conv(x, kernel, s,
+                                                    weights=wts, groups=g), 5)
+        b6.launch(x, x_q, work, wts, y, s)  # leaves x_q and s_x
+        gemm_ms = cuda_time_ms(lambda: b6.launch(x, x_q, work, wts, y, s,
+                                                 which=b6.GEMM), 5,
+                               queued=True)
+        ms, by = bound(2 * b * ho * wo * k * k * (c // g) * f,
+                       (b * h * w * c + b * ho * wo * f) * 2
+                       + k * k * (c // g) * f + 4 * f, PEAK_INT8)
+        timed[key] = dict(
+            convs_per_forward=shapes[key], conv_ms=conv_ms, gemm_ms=gemm_ms,
+            bound_ms=ms, bound_by=by, bitwise_equal=equal,
+            padded_c=b6.padded(c), padded_f=b6.padded(f),
+            tile_n=b6.tile_n(b6.padded(f), b * ho * wo,
+                             k * k * b6.padded(c)))
+        log("b6-backbone", shape=[b, h, w, c], F=f, k=k, stride=s, groups=g,
+            **timed[key])
+        if not equal:
+            raise AssertionError(f"B6 differs from its plain version at "
+                                 f"{key}")
+        del x, kernel, wts, ref, out, again, x_q, y
+    torch.cuda.empty_cache()
+
+
+def serve_backbone(device, backbone, b6_timed):
+    """The serving checks of one backbone at batch 8 (see BACKBONES);
+    returns {path: launches per batch}.  Adds its int8 convs' shapes to
+    ``b6_timed`` (``b6_new_shapes``)."""
+    names = [str(i) for i in range(80)]
+    config = backbone_config(backbone)
+    state = init_params(config, torch.Generator().manual_seed(0), 80)
+    images = torch.randn(8, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(3)
+                         ).to(device)
+    launches = {}
+    detector = Detector(config, state, names, device)
+    out, launches["plain"] = counted(lambda: detector(images))
+    check_detections(backbone, out)
+    with torch.inference_mode():
+        eager = detector.model(images)
+    gated = use_group_norm_kernel(detector.model)
+    out, launches["b4"] = counted(lambda: detector(images))
+    check_detections(f"{backbone}+b4", out)
+    groups = b4_calls_vs_plain(detector.model, images)
+    with torch.inference_mode():
+        got = detector.model(images)
+    f32 = RetinaNet.from_config(dataclasses.replace(
+        config.model, compute_dtype="float32"), 9, 80)
+    f32.load_state_dict(state)
+    f32.to(device).eval()
+    with torch.inference_mode():
+        truth = f32(images)
+    del f32
+    worse, errs = [], {}
+    for head in ("classifications", "regressions"):
+        for pn in ("P3", "P4", "P5", "P6", "P7"):
+            t = truth[head][pn].float()
+            err = {k: ((v[head][pn].float() - t).norm() / t.norm()).item()
+                   for k, v in (("b4", got), ("eager_gn", eager))}
+            errs[f"{head[:5]}/{pn}"] = err
+            if err["b4"] > (TRAIN_TRUTH_FACTOR * err["eager_gn"]
+                            + TRAIN_TRUTH_SLACK):
+                worse.append(f"{head}/{pn}")
+    log("backbone-b4", backbone=backbone, gn_modules=gated,
+        launches=launches["b4"],
+        groups={f"C{c}/g{g}": v for (c, g), v in sorted(groups.items())},
+        rel_l2_vs_float32=errs)
+    if worse:
+        raise AssertionError(f"{backbone}: B4 in the model is less accurate "
+                             f"than its GroupNorm at {worse}")
+    del detector, got, eager
+
+    q = Detector(backbone_config(backbone, quantize="int8"), state, names,
+                 device)
+    out, launches["int8"] = counted(lambda: q(images))
+    check_detections(f"{backbone} int8", out)
+    shapes = int8_conv_shapes(q.model, images)
+    with torch.inference_mode():
+        got = q.model(images)
+        real = b6.int8_conv
+        b6.int8_conv = (lambda x, kernel, strides=1, out_dtype=None,
+                        weights=None, groups=1: b6.int8_conv_plain(
+                            x, kernel, strides, out_dtype or x.dtype,
+                            groups=groups))
+        try:
+            want = q.model(images)
+        finally:
+            b6.int8_conv = real
+    share = compare_heads(f"{backbone}-int8", got, want, log_levels=False)[0]
+    int8_vs_f32, outside = {}, 0
+    for head in ("classifications", "regressions"):
+        for pn in ("P3", "P4", "P5", "P6", "P7"):
+            t = truth[head][pn].float()
+            g = got[head][pn].float()
+            int8_vs_f32[f"{head[:5]}/{pn}"] = ((g - t).norm()
+                                               / t.norm()).item()
+            outside += int(((g - t).abs() > HEAD_ATOL + HEAD_RTOL * t.abs())
+                           .sum().item())
+    log("backbone-int8", backbone=backbone, launches=launches["int8"],
+        distinct_shapes=len(shapes), b6_vs_plain_bitwise_share=share,
+        rel_l2_vs_float32=int8_vs_f32,
+        elements_outside_head_bound_vs_float32=outside)
+    del q, got, want, truth
+    torch.cuda.empty_cache()
+    b6_new_shapes(device, shapes, b6_timed)
+    log("b6-backbone-forward", backbone=backbone,
+        convs=sum(shapes.values()),
+        **{k: sum(n * b6_timed[key][k] for key, n in shapes.items())
+           for k in ("conv_ms", "gemm_ms", "bound_ms")})
+    b4_calls = sum(calls for calls, _ in groups.values())
+    want = {"plain": {"b2": 1}, "b4": {"b2": 1, "b4": b4_calls},
+            "int8": {"b6": BACKBONE_B6[backbone], "b2": 1}}
+    log("backbone-launches", backbone=backbone, per_batch=launches,
+        expected=want)
+    if launches != want:
+        raise AssertionError(f"{backbone}: launches {launches}, expected "
+                             f"{want}")
+    return launches
+
+
+def grouped_conv_times(device):
+    """Device ms of ResNeXt-50's grouped 3×3 at batch 8 as it runs (the
+    block-diagonal dense conv, ``grouped_as_dense`` up to width 512) and
+    as ``F.conv2d(groups=32)``, bf16 channels_last, recorded only."""
+    gen = torch.Generator().manual_seed(4)
+    for h, w, width in GROUPED_3X3:
+        x = torch.randn(8, width, h, w, generator=gen).to(
+            device, torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+        k = he_kernel((width, width // 32, 3, 3), gen).to(device)
+        dense = block_diagonal(k, 32).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        grouped = k.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        ms = {"dense_ms": cuda_time_ms(
+            lambda: F.conv2d(x, dense, padding=1), 10, queued=True),
+            "grouped_ms": cuda_time_ms(
+            lambda: F.conv2d(x, grouped, padding=1, groups=32), 10,
+            queued=True)}
+        log("grouped-3x3-time", shape=[8, h, w, width], groups=32,
+            runs_as="dense" if width <= 512 else "grouped", **ms)
+        del x, k, dense, grouped
+
+
+def remat_step(device, backbone):
+    """One ``make_train_step`` at batch 8, dropout 0.2, with and without
+    remat from dropout seed 1, and without from seed 2: each parameter's
+    update held as REMAT_REL/REMAT_SEED_FACTOR say."""
+    batch = synthetic_batch(8, SIZE, Config().assign.max_boxes, device)
+    state0 = init_params(backbone_config(backbone),
+                         torch.Generator().manual_seed(0), 80)
+    updates = {}
+    for label, remat, seed in (("no_remat", False, 1), ("remat", True, 1),
+                               ("other_seed", False, 2)):
+        config = backbone_config(backbone, remat=remat)
+        model = RetinaNet.from_config(config.model, 9, 80).to(device)
+        sites = [m.site for m in model.modules() if isinstance(m, Dropout)]
+        state = create_train_state(model, config, state0)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        step = make_train_step(model, build_levels(config.anchors), config,
+                               with_metrics=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        state, metrics = step(state, *batch,
+                              torch.Generator().manual_seed(seed))
+        loss = metrics["total_loss"].item()
+        ms = (time.perf_counter() - t) * 1e3
+        updates[label] = {k: (state.params[k].detach() - before[k]).float()
+                          for k in before}
+        log("backbone-step", backbone=backbone, run=label, total_loss=loss,
+            first_step_ms=ms,
+            peak_gb=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{backbone}: {label} loss {loss}")
+        del model, state, before
+        torch.cuda.empty_cache()
+    ref = updates["no_remat"]
+
+    def worst(other):
+        return max(((other[k] - r).norm() / r.norm()).item()
+                   for k, r in ref.items()
+                   if r.abs().max().item() >= TRAIN_LEAF_MIN)
+
+    remat_rel, seed_rel = worst(updates["remat"]), worst(updates["other_seed"])
+    log("backbone-remat", backbone=backbone, worst_leaf_rel_remat=remat_rel,
+        worst_leaf_rel_other_seed=seed_rel, bound=REMAT_REL,
+        seed_factor=REMAT_SEED_FACTOR)
+    if remat_rel > REMAT_REL or seed_rel < REMAT_SEED_FACTOR * remat_rel:
+        raise AssertionError(f"{backbone}: remat update {remat_rel}, other "
+                             f"seed {seed_rel}")
+    dropout_host_cost(device, backbone, sites)
+
+
+def dropout_host_cost(device, backbone, sites, reps=20):
+    """Host ms that one training forward spends making its dropout
+    generators on the card, one per site (median of ``reps``): the model's
+    way (``DropoutKeys.generator``, one generator re-seeded per site) and,
+    for comparison, a new ``torch.Generator`` per site."""
+
+    def reuse():
+        keys = DropoutKeys(1)
+        for site in sites:
+            keys.generator(site, device)
+
+    def fresh():
+        for site in sites:
+            torch.Generator(device).manual_seed(site)
+
+    ms = {}
+    for label, fn in (("reuse_ms", reuse), ("fresh_ms", fresh)):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        ms[label] = statistics.median(times)
+    log("backbone-dropout-host", backbone=backbone, sites=len(sites), **ms)
+
+
+def time_backbone(device, backbone):
+    """images/s and p50 at batch 8 and 128 on the plain, +B4 and int8
+    paths (``infer.benchmark``), MFU from the model's useful work
+    (``forward_gflops_per_image(algorithmic=True)``: ResNeXt-50's grouped
+    3×3 without the zeros of its block-diagonal form; ``mfu_as_run``
+    counts them), and the training step at batch 8 (``benchmark_train``)."""
+    gflops = forward_gflops_per_image(backbone_config(backbone))
+    useful = forward_gflops_per_image(backbone_config(backbone),
+                                      algorithmic=True)
+    for batch in (8, 128):
+        for path in ("plain", "b4", "int8"):
+            config = backbone_config(
+                backbone, batch, "int8" if path == "int8" else "none")
+            steps = 5 if batch == 8 else 3
+            r, launches = counted(lambda: benchmark(
+                config, batch_size=batch, steps=steps, warmup=1,
+                num_classes=80, device=device,
+                group_norm_kernel=path == "b4"))
+            calls = 1 + steps + min(steps, 10)  # warm-up, timed, latency
+            per_call = {k: n / calls for k, n in launches.items()}
+            log("backbone-time", backbone=backbone, path=path, batch=batch,
+                images_per_sec=r["images_per_sec"],
+                p50_ms=r["p50_latency_ms"],
+                mfu=r["images_per_sec"] * useful * 1e9 / PEAK_BF16,
+                mfu_as_run=r["images_per_sec"] * gflops * 1e9 / PEAK_BF16,
+                launches_per_batch=per_call)
+            want = {"b2": 1, **({"b6": BACKBONE_B6[backbone]}
+                                if path == "int8" else {})}
+            if {k: v for k, v in per_call.items() if k != "b4"} != want \
+                    or ("b4" in per_call) != (path == "b4"):
+                raise AssertionError(f"{backbone} {path} at b{batch}: "
+                                     f"{per_call} launches per batch")
+            torch.cuda.empty_cache()
+    # Dropout 0 beside the default 0.2, where the model has dropout sites.
+    for rate in (0.2,) if backbone == "resnet_50" else (0.2, 0.0):
+        t = benchmark_train(backbone_config(backbone, dropout_rate=rate),
+                            batch_size=8, steps=3, warmup=1, num_classes=80,
+                            device=device)
+        log("backbone-train-time", backbone=backbone, batch=8, dropout=rate,
+            step_ms=t["step_ms"], images_per_sec=t["images_per_sec"],
+            peak_gb=t["peak_memory_bytes"] / 2 ** 30,
+            gflops_per_image=gflops, useful_gflops_per_image=useful)
+        torch.cuda.empty_cache()
+
+
+def backbone_fit(device):
+    """ResNeXt-50, the default backbone, through the training CLI as
+    ``run_fit`` drives it (no ``--backbone`` flag): BACKBONE_FIT_STEPS at
+    FIT_SIZE px, batch FIT_BATCH, in two invocations (the second logs the
+    restore and resumes), finite losses, the data loss of the last logged
+    step below step 1's; then ``evaluate --experiment`` (1 B2 a batch,
+    finite metrics) and ``detect --experiment`` (1 B2)."""
+    root = Path(__file__).resolve().parent / "build" / "backbones_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    dataset = ["shapes", str(root / "shapes"), str(BACKBONE_FIT_IMAGES),
+               str(FIT_SIZE)]
+    experiment = str(root / "resnet_50")
+    half = BACKBONE_FIT_STEPS // 2
+    per_epoch = BACKBONE_FIT_IMAGES // FIT_BATCH
+    argv = ["--dataset", *dataset, "--experiment", experiment, "--scale",
+            str(FIT_SIZE), "--batch-size", str(FIT_BATCH), "--dropout", "0",
+            "--log-every", "5", "--epochs", str(half // per_epoch),
+            "--steps-per-epoch", str(per_epoch), "--device", str(device)]
+    runs = []
+    for _ in range(2):
+        state, launches, messages, seconds = run_fit(argv)
+        runs.append((int(state.step), seconds, messages))
+        del state
+        torch.cuda.empty_cache()
+    with open(Path(experiment) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    data = [(r["step"], r["class_loss"] + r["regr_loss"]) for r in records
+            if "class_loss" in r]
+    restored = any("restored checkpoint" in m for m in runs[1][2])
+    step_ms = [r["images_per_sec"] for r in records if r["step"] > 1]
+    log("backbone-fit", backbone="resnet_50", steps=[r[0] for r in runs],
+        seconds=[r[1] for r in runs], restored=restored, data_loss=data,
+        step_ms=[FIT_BATCH / v * 1e3 for v in step_ms])
+    finite = all(math.isfinite(r["total_loss"]) for r in records
+                 if "total_loss" in r)
+    if ([r[0] for r in runs] != [half, 2 * half] or not restored
+            or not finite or not data[-1][1] < data[0][1]):
+        raise AssertionError(f"resnet_50 fit: steps {[r[0] for r in runs]}, "
+                             f"restored {restored}, data loss {data}")
+    base = ["--dataset", *dataset, "--experiment", experiment, "--scale",
+            str(FIT_SIZE), "--batch-size", str(FIT_BATCH),
+            "--score-threshold", "0.005", "--device", str(device)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        metrics, eval_launches = counted(lambda: evaluate.main(base))
+    batches = BACKBONE_FIT_IMAGES // FIT_BATCH
+    finite = all(v is None or math.isfinite(v) for v in
+                 evaluate.strict_json(metrics).values()
+                 if not isinstance(v, (list, dict)))
+    log("backbone-evaluate", backbone="resnet_50",
+        metrics=evaluate.strict_json(metrics), launches=eval_launches,
+        batches=batches)
+    if eval_launches != {"b2": batches} or not finite:
+        raise AssertionError(f"evaluate --experiment: {eval_launches} "
+                             f"launches over {batches} batches")
+    from retinanet_tpu_torch.data.loaders.shapes import Shapes
+    image = next(iter(Shapes(None, 1, (FIT_SIZE, FIT_SIZE), seed=1)))["image"]
+    path = str(root / "detect.png")
+    pipeline.cv2.imwrite(path, image[..., ::-1])
+    records, det_launches = counted(lambda: detect.main(
+        [path, "--experiment", experiment, "--scale", str(FIT_SIZE),
+         "--dataset", *dataset, "--score-threshold", "0.0", "--device",
+         str(device)]))
+    log("backbone-detect", backbone="resnet_50", launches=det_launches,
+        detections=len(records))
+    if det_launches != {"b2": 1} or not records:
+        raise AssertionError(f"detect --experiment: {det_launches} launches,"
+                             f" {len(records)} detections")
+    return data
+
+
+def check_backbones(device):
+    """The backbones phase (BACKBONES).  Returns {backbone: {path:
+    launches per batch}} and the B6 shapes timed."""
+    launches, b6_timed = {}, {}
+    for backbone in BACKBONES:
+        t = time.monotonic()
+        launches[backbone] = serve_backbone(device, backbone, b6_timed)
+        if backbone != "resnet_50":
+            remat_step(device, backbone)
+        time_backbone(device, backbone)
+        log("backbone-done", backbone=backbone,
+            seconds=time.monotonic() - t)
+    grouped_conv_times(device)
+    backbone_fit(device)
+    totals = {k: sum(v[f] for v in b6_timed.values())
+              for k, f in (("conv_ms", "conv_ms"), ("gemm_ms", "gemm_ms"),
+                           ("bound_ms", "bound_ms"))}
+    log("b6-backbone-total", shapes=len(b6_timed), **totals)
+    return launches, totals
+
+
 def build_kernels():
     """One nvcc per source and the host library's g++, all started
     together."""
@@ -3561,6 +4107,10 @@ def main(argv=()) -> int:
     if "breakdown" in phases:
         breakdown(device)
         ends["breakdown"] = time.monotonic() - t0
+    backbone_launches, backbone_b6 = {}, {}
+    if "backbones" in phases:
+        backbone_launches, backbone_b6 = check_backbones(device)
+        ends["backbones"] = time.monotonic() - t0
     if "fit" in phases:
         # Last: a profile window loses its first kernels more the older
         # the process is (utils/profiling.py), and this phase takes
@@ -3597,6 +4147,12 @@ def main(argv=()) -> int:
         path: per_batch[key] for path, per_batch in eval_launches.items()},
         "fit_launches_kernel_path": fit_launches[key]}
         for key in sources}
+    for key in ("b2", "b4", "b6"):
+        extra[key]["backbones_launches_per_batch"] = {
+            name: {path: per_batch.get(key, 0)
+                   for path, per_batch in paths.items()}
+            for name, paths in backbone_launches.items()}
+    extra["b6"]["backbones_new_shapes_ms"] = backbone_b6
     extra["b2"].update(largest_n_checked=b2_largest_n,
                        launches_reference_decode_every_candidate=sum(
                            decode_launches.values()))

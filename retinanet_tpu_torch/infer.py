@@ -9,6 +9,7 @@ numerator of a serving MFU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -22,7 +23,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.ops.anchors import Levels, build_levels
 from retinanet_tpu_torch.export import init_params, load_exported
-from retinanet_tpu_torch.models.layers import use_group_norm_kernel
+from retinanet_tpu_torch.models.layers import (force_true_grouped,
+                                               use_group_norm_kernel)
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops.nms import BoxesDecoded, fused_decode_nms
 from retinanet_tpu_torch.ops.preprocess import maybe_normalize
@@ -158,14 +160,14 @@ def forward_gflops_per_image(config: Config, num_classes: int = 80,
     """Forward GFLOPs per image of the model at ``config.data.image_size``.
 
     Counted by ``FlopCounterMode`` (convolutions and matrix products, 2
-    per multiply-add) on the unfused float model (``fused_*`` off,
-    ``quantize="none"``: the kernels compute the same convolutions) built
-    on the meta device: no device work, no compile.  ``algorithmic`` (the
-    JAX package's true grouped-conv count) changes nothing for the dense
-    backbone; a backbone the port lacks raises, as
-    ``RetinaNet.from_config`` does.
+    per multiply-add, a conv by its weight's shape) on the unfused float
+    model (``fused_*`` off, ``quantize="none"``: the kernels compute the
+    same convolutions) built on the meta device: no device work, no
+    compile.  By default a grouped conv that runs block-diagonal dense
+    (``Conv.grouped_as_dense``) counts its dense MACs, as it runs;
+    ``algorithmic`` counts it truly grouped (``force_true_grouped``), the
+    JAX package's two modes.
     """
-    del algorithmic  # only grouped convolutions count differently
     model_cfg = dataclasses.replace(
         config.model, fused_blocks=False, fused_res2=False,
         fused_res3_strips=0, fused_res4_strips=0, fused_proj=False,
@@ -177,6 +179,8 @@ def forward_gflops_per_image(config: Config, num_classes: int = 80,
                                       num_classes).eval()
         images = torch.empty(1, size, size, 3)
     counter = FlopCounterMode(display=False)
-    with counter, torch.no_grad():
+    grouped = (force_true_grouped() if algorithmic
+               else contextlib.nullcontext())
+    with counter, grouped, torch.no_grad():
         model(images)
     return counter.get_total_flops() / 1e9

@@ -5,23 +5,34 @@ Images come in NHWC (the JAX layout) and are viewed as NCHW in
 ``channels_last`` memory; outputs are ``{'classifications': {P3..P7:
 [B,H,W,A,K]}, 'regressions': {P3..P7: [B,H,W,A,4]}}`` in the compute
 dtype (float32 logits when training).  ``l2_regularization`` is the
-TF-parity L2 loss over the conv kernels.  Only the dense ResNet-50 flagship
-is built so far; ``quantize="int8"`` serves it with int8 backbone and FPN
-convs (heads and stem float) on the float model's parameters.
+TF-parity L2 loss over the conv kernels.  Five backbones build:
+``resnet_50`` (ResNeXt-50 32×4d, the default), ``resnet_50_dense`` (the
+flagship, the only one with fused kernels), ``mobilenet_v2``,
+``densenet_121`` and ``densenet_169``; each states its C1..C5 widths,
+which size the FPN's inputs.  ``quantize="int8"`` serves any of them with
+int8 backbone and FPN convs (heads, stems and depthwise convs float) on
+the float model's parameters.  MobileNetV2 and DenseNet train with
+dropout, drawn from the generator passed to ``forward``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import logging
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
 
 from retinanet_tpu_torch.config import ModelConfig
+from retinanet_tpu_torch.models.densenet import DenseNetBC121, DenseNetBC169
 from retinanet_tpu_torch.models.fpn import FPN
 from retinanet_tpu_torch.models.heads import (ClassificationSubnet,
                                               RegressionSubnet)
-from retinanet_tpu_torch.models.resnet import ResNet50
+from retinanet_tpu_torch.models.layers import Dropout, DropoutKeys
+from retinanet_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from retinanet_tpu_torch.models.resnet import ResNet50, ResNeXt50
+
+logger = logging.getLogger(__name__)
 
 BACKBONES = ("resnet_50", "resnet_50_dense", "densenet_121", "densenet_169",
              "mobilenet_v2")
@@ -31,8 +42,13 @@ def build_backbone(name: str, quantize: bool = False,
                    fused_blocks: bool = False, fused_res2: bool = False,
                    fused_res2_strips: int = 20, fused_res3_strips: int = 0,
                    fused_res4_strips: int = 0, fused_proj: bool = False,
-                   fused_train: bool = False, remat: bool = False
+                   fused_train: bool = False, remat: bool = False,
+                   activation: str = "elu", dropout_rate: float = 0.0
                    ) -> nn.Module:
+    """The backbone ``name`` (the JAX package's ``build_backbone``).  The
+    ``fused_*`` flags reach only ``resnet_50_dense``; elsewhere they do
+    nothing, as in the JAX package, and one line says so.  ResNet-50's
+    two forms have no dropout and relu blocks whatever ``activation``."""
     if name == "resnet_50_dense":
         return ResNet50(fused_blocks=fused_blocks, fused_res2=fused_res2,
                         fused_res2_strips=fused_res2_strips,
@@ -40,11 +56,24 @@ def build_backbone(name: str, quantize: bool = False,
                         fused_res4_strips=fused_res4_strips,
                         fused_train=fused_train, fused_proj=fused_proj,
                         quantize=quantize, remat=remat)
-    if name in BACKBONES:
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP A.6, other "
-            "backbones); only 'resnet_50_dense' is")
-    raise ValueError(f"unknown backbone {name!r}; choose from {BACKBONES}")
+    if name not in BACKBONES:
+        raise ValueError(f"unknown backbone {name!r}; choose from "
+                         f"{BACKBONES}")
+    fused = [flag for flag, on in (("fused_blocks", fused_blocks),
+                                   ("fused_res2", fused_res2),
+                                   ("fused_proj", fused_proj),
+                                   ("fused_train", fused_train)) if on]
+    if fused:
+        logger.info("%s has no effect on backbone %r (resnet_50_dense "
+                    "only)", ", ".join(fused), name)
+    if name == "resnet_50":
+        return ResNeXt50(quantize=quantize, remat=remat)
+    if name == "mobilenet_v2":
+        return MobileNetV2(activation, dropout_rate, quantize=quantize,
+                           remat=remat)
+    factory = DenseNetBC121 if name == "densenet_121" else DenseNetBC169
+    return factory(activation=activation, dropout_rate=dropout_rate,
+                   remat=remat, quantize=quantize)
 
 
 class RetinaNet(nn.Module):
@@ -52,7 +81,8 @@ class RetinaNet(nn.Module):
 
     def __init__(self, backbone: str = "resnet_50_dense",
                  num_classes: int = 80, num_anchors: int = 9,
-                 activation: str = "elu", fpn_channels: int = 256,
+                 activation: str = "elu", dropout_rate: float = 0.2,
+                 fpn_channels: int = 256,
                  head_depth: int = 4, prior_prob: float = 0.01,
                  quantize: bool = False, fused_blocks: bool = False,
                  fused_res2: bool = False, fused_res2_strips: int = 20,
@@ -68,15 +98,21 @@ class RetinaNet(nn.Module):
             fused_res2=fused_res2, fused_res2_strips=fused_res2_strips,
             fused_res3_strips=fused_res3_strips,
             fused_res4_strips=fused_res4_strips, fused_proj=fused_proj,
-            fused_train=fused_train, remat=remat)
-        self.fpn = FPN({"C3": 512, "C4": 1024, "C5": 2048}, fpn_channels,
-                       activation, quantize)
+            fused_train=fused_train, remat=remat, activation=activation,
+            dropout_rate=dropout_rate)
+        self.fpn = FPN(self.backbone_net.channels, fpn_channels, activation,
+                       quantize)
         # The heads stay float under int8 serving (retinanet.py:150-165).
         self.classification_subnet = ClassificationSubnet(
             num_anchors, num_classes, fpn_channels, head_depth, activation,
             prior_prob)
         self.regression_subnet = RegressionSubnet(
             num_anchors, fpn_channels, head_depth, activation)
+        # Each dropout's index folds into the forward's seed.
+        self.dropout_sites = [m for m in self.modules()
+                              if isinstance(m, Dropout) and m.rate > 0]
+        for site, module in enumerate(self.dropout_sites):
+            module.site = site
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, num_anchors: int = 9,
@@ -87,6 +123,7 @@ class RetinaNet(nn.Module):
             else num_classes,
             num_anchors=num_anchors,
             activation=cfg.activation,
+            dropout_rate=cfg.dropout_rate,
             fpn_channels=cfg.fpn_channels,
             head_depth=cfg.head_depth,
             prior_prob=cfg.prior_prob,
@@ -101,13 +138,19 @@ class RetinaNet(nn.Module):
             remat=cfg.remat,
             dtype=getattr(torch, cfg.compute_dtype))
 
-    def forward(self, images: Tensor, training: bool = False
+    def forward(self, images: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Dict[str, Tensor]]:
-        """``training`` routes the identity blocks through B3 under
-        ``fused_train`` and returns float32 head outputs; the FPN has no
-        layer that depends on it (this model has no dropout)."""
+        """``training`` turns the backbone's dropout on (masks from
+        ``generator``: one seed drawn per call, ``DropoutKeys``), routes
+        the dense model's identity blocks through B3 under
+        ``fused_train``, and returns float32 head outputs.  A backbone with
+        dropout needs ``generator`` to train; the FPN and heads have none."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        bottom_up = self.backbone_net(x, training)
+        keys = (DropoutKeys.draw(generator)
+                if training and generator is not None and self.dropout_sites
+                else None)
+        bottom_up = self.backbone_net(x, training, keys)
         top_down = self.fpn({k: bottom_up[k] for k in ("C3", "C4", "C5")})
         return {
             "classifications": {k: self.classification_subnet(v, training)

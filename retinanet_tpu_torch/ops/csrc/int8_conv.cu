@@ -7,15 +7,21 @@
 //     x_q = clip(rint(x / s_x), -127, 127)
 //     acc = sum_k x_q * w_q  (s8 x s8 -> s32, exact, TF-SAME zero padding)
 //     y   = float(acc) * (s_x * s_w[f])  [+ bias[f]] [relu] -> out dtype
-// for 1x1 and 3x3 windows at stride 1 or 2.  The weights arrive quantized
-// (w_q [F, k*k*C] tap-major, s_w fp32): the wrapper quantizes them once per
-// parameter version, so serving launches three kernels per conv:
+// for 1x1 and 3x3 windows at stride 1 or 2, C and F any multiple of 8.  The
+// weights arrive quantized (w_q [Fp, k*k*Cp] tap-major, s_w [F] fp32, with
+// Cp and Fp C and F rounded up to multiples of 64 and the padding zero; a
+// grouped conv arrives as its block-diagonal dense kernel): the wrapper
+// quantizes them once per parameter version, so serving launches three
+// kernels per conv:
 //   1. int8_amax: max|x| over the whole tensor, 16 bytes per load; each CTA
 //      writes its maximum, and the last CTA to finish (an atomic ticket)
 //      reduces them and writes s_x = max(amax, 1e-8) / 127 with a true
 //      division.  Max is exact, so the result does not depend on order.
 //      |x| compares as the unsigned bit pattern of a non-negative float.
-//   2. int8_quantize: x -> x_q, 16 elements per thread.  The quotient is
+//   2. int8_quantize: x -> x_q [B,H,W,Cp], one 16-byte chunk of x_q per
+//      thread (a 2-D block: chunk by pixel), zero past C, so that the
+//      GEMM's 64-byte half rows stay inside one tap (where C < Cp the
+//      padding multiplies x_q's bytes by Cp / C).  The quotient is
 //      the correctly rounded x / s_x, as the model path divides (the TPU
 //      kernel multiplied by 1/s_x): x * (1/s_x) gives the same integer
 //      except within ~3e-5 of a half-integer, where the kernel divides
@@ -30,11 +36,13 @@
 //      zero-filled outside the image (src-size 0), and int8 wgmma
 //      m64nBNk32 on two warpgroups.  Both operands are K-major (x_q is
 //      NHWC, w_q tap-major), the layout int8 wgmma takes, so wgmma fits
-//      every shape.  The epilogue converts acc with __int2float_rn (|acc|
-//      reaches 127^2 * 9 * 512 > 2^24, so it rounds, as XLA's does),
-//      multiplies by the fp32 product s_x*s_w[f], adds the bias in fp32,
-//      applies relu and casts into a shared-memory tile, written out in
-//      whole 16-byte rows.  s32 sums are exact in any order, so the result
+//      every shape.  Fp / BN tiles cover F; the columns past F are computed
+//      from zero weights and not stored.  The epilogue converts acc with
+//      __int2float_rn (|acc| reaches 127^2 * 9 * 512 > 2^24, so it rounds,
+//      as XLA's does), multiplies by the fp32 product s_x*s_w[f], adds the
+//      bias in fp32, applies relu and casts into a shared-memory tile,
+//      written out in 16-byte pieces below F.  s32 sums are exact in any
+//      order, so the result
 //      equals the plain version (float64 sums of the same integers, same
 //      fp32 epilogue) bitwise.
 //
@@ -132,34 +140,49 @@ __device__ __forceinline__ int8_t quantize(float v, float s, float rs) {
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
-// 16 elements per thread: n16 = n / 16 groups.
+// x [P, C] -> x_q [P, Cp] for C % 8 == 0 and C <= Cp, zero in channels
+// C..Cp-1.  A thread writes one 16-byte chunk of x_q (16 channels):
+// threadIdx.x picks the chunk within a pixel, threadIdx.y and the block the
+// pixel, so that no index is divided.  Both 8-channel halves are loaded
+// before either is quantized (a half past C loads zeros, which quantize to
+// 0), so that a thread has all its loads in flight at once.
 template <typename T>
 __global__ void int8_quantize(const T* __restrict__ x,
                               const float* __restrict__ sx,
-                              int8_t* __restrict__ q, size_t n16) {
+                              int8_t* __restrict__ q, size_t pixels, int C,
+                              int Cp) {
+  constexpr int LOADS = 8 * sizeof(T) / 16;  // 16-byte loads a half
   const float s = *sx;
   const float rs = __fdiv_rn(1.f, s);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n16;
-       i += (size_t)gridDim.x * blockDim.x) {
-    constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
-    uint4 raw[16 / PER];
+  const int chunks = Cp / 16;
+  for (size_t p = blockIdx.x * (size_t)blockDim.y + threadIdx.y; p < pixels;
+       p += (size_t)gridDim.x * blockDim.y) {
+    for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+      uint4 raw[2 * LOADS];
 #pragma unroll
-    for (int j = 0; j < 16 / PER; ++j)
-      raw[j] = reinterpret_cast<const uint4*>(x + i * 16)[j];
-    const T* e = reinterpret_cast<const T*>(raw);
-    uint4 out;
-    int8_t* o = reinterpret_cast<int8_t*>(&out);
+      for (int half = 0; half < 2; ++half) {
+        const int c = k * 16 + half * 8;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float v;
-      if constexpr (sizeof(T) == 2) {
-        v = __bfloat162float(e[j]);
-      } else {
-        v = e[j];
+        for (int j = 0; j < LOADS; ++j)
+          raw[half * LOADS + j] =
+              c < C ? reinterpret_cast<const uint4*>(x + p * C + c)[j]
+                    : make_uint4(0u, 0u, 0u, 0u);
       }
-      o[j] = quantize(v, s, rs);
+      const T* e = reinterpret_cast<const T*>(raw);
+      uint4 out;
+      int8_t* o = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float v;
+        if constexpr (sizeof(T) == 2) {
+          v = __bfloat162float(e[j]);
+        } else {
+          v = e[j];
+        }
+        o[j] = quantize(v, s, rs);
+      }
+      reinterpret_cast<uint4*>(q + p * Cp)[k] = out;
     }
-    reinterpret_cast<uint4*>(q)[i] = out;
   }
 }
 
@@ -171,8 +194,13 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// out[p, n] = epi(sum_k x_q[tap(p, k)] * w_q[n, k]) over M = B*Ho*Wo rows.
-template <int BN, int KS, typename OutT>
+// out[p, n] = epi(sum_k x_q[tap(p, k)] * w_q[n, k]) over M = B*Ho*Wo rows
+// and the first F columns; C is x_q's padded channel count (a multiple of
+// 64) and w_q has a row for every column of the grid's tiles.  EDGE: BN
+// does not divide F, so the last N tile reads no s_w or bias and stores
+// nothing past F (the instance without it keeps the epilogue free of
+// those tests).
+template <int BN, int KS, typename OutT, bool EDGE>
 __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
     const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     const float* __restrict__ sx, const float* __restrict__ sw,
@@ -182,8 +210,14 @@ __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
   extern __shared__ char smem_raw[];
   char* smem = align1024(smem_raw);
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * CONV_BM;
+  // Tile t = x + y * gridDim.x, N tiles fastest, so that neighbouring CTAs
+  // share their rows of x_q: a (N tiles, M tiles) grid, or a flat one
+  // where the M tiles pass y's 65535 (8.4M output pixels, fewer than a
+  // 320x320 plane at batch 128).
+  const int ntiles = (F + BN - 1) / BN;
+  const unsigned t = blockIdx.x + blockIdx.y * gridDim.x;
+  const int n0 = (int)(t % ntiles) * BN;
+  const int m0 = (int)(t / ntiles) * CONV_BM;
   const int K = KS * KS * C;
   const float s = *sx;
 
@@ -217,9 +251,11 @@ __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
+        const int n = n0 + col + e;  // past F: computed, never stored
+        const bool in = !EDGE || n < F;
         float y = __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + e]),
-                            __fmul_rn(s, sw[n0 + col + e]));
-        if (has_bias) y = __fadd_rn(y, bias[n0 + col + e]);
+                            __fmul_rn(s, in ? sw[n] : 0.f));
+        if (has_bias && in) y = __fadd_rn(y, bias[n]);
         if (relu) y = fmaxf(y, 0.f);
         v[e] = y;
       }
@@ -228,9 +264,11 @@ __global__ void __launch_bounds__(CONV_THREADS) int8_conv_gemm(
   }
   __syncthreads();
   constexpr int CH = BN * sizeof(OutT) / 16;  // 16-byte pieces per row
+  constexpr int PER = 16 / sizeof(OutT);      // columns per piece
   for (int c = tid; c < CONV_BM * CH; c += CONV_THREADS) {
     const int r = c / CH, q = c - r * CH;
-    if (m0 + r < M)
+    // F % 8 == 0: a piece lies wholly below F or wholly past it.
+    if (m0 + r < M && (!EDGE || n0 + (q + 1) * PER <= F))
       reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * F + n0)[q] =
           *reinterpret_cast<const uint4*>(smem + r * PITCH + q * 16);
   }
@@ -245,19 +283,22 @@ int gemm_smem_bytes(int kb) {
   return ring > tile ? ring : tile;
 }
 
-template <int BN, int KS, typename OutT>
+template <int BN, int KS, typename OutT, bool EDGE>
 cudaError_t launch_conv(const int8_t* xq, const int8_t* wq, const float* sx,
                         const float* sw, const float* bias, void* out, int B,
                         int H, int W, int C, int F, int stride, int pad_t,
                         int pad_l, int Ho, int Wo, int has_bias, int relu,
                         cudaStream_t st) {
-  auto kernel = int8_conv_gemm<BN, KS, OutT>;
+  auto kernel = int8_conv_gemm<BN, KS, OutT, EDGE>;
   static bool sized[MAX_DEVICES] = {};
   const cudaError_t e =
       allow_smem(kernel, gemm_smem_bytes<BN, OutT>(1 << 30), sized);
   if (e != cudaSuccess) return e;
   const int M = B * Ho * Wo;
-  const dim3 grid(F / BN, (M + CONV_BM - 1) / CONV_BM);
+  const unsigned ntiles = (F + BN - 1) / BN;
+  const unsigned mtiles = (M + CONV_BM - 1) / CONV_BM;
+  const dim3 grid = mtiles <= 65535 ? dim3(ntiles, mtiles)
+                                    : dim3(ntiles * mtiles);
   kernel<<<grid, CONV_THREADS, gemm_smem_bytes<BN, OutT>(KS * KS * C),
            st>>>(
       xq, wq, sx, sw, bias, static_cast<OutT*>(out), M, H, W, C, F, stride,
@@ -272,13 +313,22 @@ cudaError_t launch_conv_ks(int ks, const int8_t* xq, const int8_t* wq,
                            int C, int F, int stride, int pad_t, int pad_l,
                            int Ho, int Wo, int has_bias, int relu,
                            cudaStream_t st) {
+  const bool edge = F % BN != 0;
+  if (ks == 1 && edge)
+    return launch_conv<BN, 1, OutT, true>(xq, wq, sx, sw, bias, out, B, H, W,
+                                          C, F, stride, pad_t, pad_l, Ho, Wo,
+                                          has_bias, relu, st);
   if (ks == 1)
-    return launch_conv<BN, 1, OutT>(xq, wq, sx, sw, bias, out, B, H, W, C, F,
-                                    stride, pad_t, pad_l, Ho, Wo, has_bias,
-                                    relu, st);
-  return launch_conv<BN, 3, OutT>(xq, wq, sx, sw, bias, out, B, H, W, C, F,
-                                  stride, pad_t, pad_l, Ho, Wo, has_bias,
-                                  relu, st);
+    return launch_conv<BN, 1, OutT, false>(xq, wq, sx, sw, bias, out, B, H,
+                                           W, C, F, stride, pad_t, pad_l, Ho,
+                                           Wo, has_bias, relu, st);
+  if (edge)
+    return launch_conv<BN, 3, OutT, true>(xq, wq, sx, sw, bias, out, B, H, W,
+                                          C, F, stride, pad_t, pad_l, Ho, Wo,
+                                          has_bias, relu, st);
+  return launch_conv<BN, 3, OutT, false>(xq, wq, sx, sw, bias, out, B, H, W,
+                                         C, F, stride, pad_t, pad_l, Ho, Wo,
+                                         has_bias, relu, st);
 }
 
 template <typename OutT>
@@ -314,16 +364,17 @@ using namespace b6_int8_conv;
 // One int8 convolution, its three launches in order; `which` selects them
 // (bit 0 int8_amax, bit 1 int8_quantize, bit 2 int8_conv_gemm), so that a
 // caller can time the GEMM alone.
-//   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq: B*H*W*C s8 of scratch;
+//   x [B,H,W,C] bf16 (in_code 0) or fp32 (1); xq: B*H*W*Cp s8 of scratch
+//   (Cp = C rounded up to a multiple of 64, Fp likewise);
 //   scratch: AMAX_MAX_CTAS + 2 words: per-CTA maxima, the ticket (0 on
 //   entry, left 0), then s_x (fp32);
-//   wq [F, ks*ks*C] s8 (tap-major k); sw [F] and bias [F] fp32 (bias read
-//   only when has_bias; may be null otherwise);
+//   wq [Fp, ks*ks*Cp] s8 (tap-major k, zero past F and C); sw [F] and
+//   bias [F] fp32 (bias read only when has_bias; may be null otherwise);
 //   out [B,Ho,Wo,F] bf16 (out_code 0) or fp32 (1); bn in {64, 128, 256}
-//   divides F;
+//   divides Fp;
 //   geom: in_code, B, H, W, C, F, ks, stride, pad_t, pad_l, Ho, Wo,
 //   out_code (13 ints, one array per conv geometry, kept by the caller).
-// Requires C % 64 == 0 and F % 64 == 0 (checked by the Python wrapper).
+// Requires C % 8 == 0 and F % 8 == 0 (checked by the Python wrapper).
 // Returns the first launch error (0 = cudaSuccess).
 extern "C" int int8_conv_forward(const void* x, void* xq, void* scratch,
                                  const void* wq, const void* sw,
@@ -339,6 +390,7 @@ extern "C" int int8_conv_forward(const void* x, void* xq, void* scratch,
   unsigned* ticket = partial + AMAX_MAX_CTAS;
   float* sx = reinterpret_cast<float*>(ticket + 1);
   int8_t* q = static_cast<int8_t*>(xq);
+  const int Cp = (C + 63) / 64 * 64;
   const size_t n = (size_t)B * H * W * C;
   cudaError_t e;
   if (which & 1) {
@@ -353,14 +405,16 @@ extern "C" int int8_conv_forward(const void* x, void* xq, void* scratch,
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (which & 2) {
-    const size_t n16 = n / 16;
-    const int blocks = grid_for(n16, 256, 65535);
+    const size_t pixels = (size_t)B * H * W;
+    const int bx = Cp / 16 < 256 ? Cp / 16 : 256;
+    const dim3 block(bx, 256 / bx);
+    const int blocks = grid_for(pixels, block.y, 65535);
     if (in_code == 0)
-      int8_quantize<bf16><<<blocks, 256, 0, st>>>(
-          static_cast<const bf16*>(x), sx, q, n16);
+      int8_quantize<bf16><<<blocks, block, 0, st>>>(
+          static_cast<const bf16*>(x), sx, q, pixels, C, Cp);
     else
-      int8_quantize<float><<<blocks, 256, 0, st>>>(
-          static_cast<const float*>(x), sx, q, n16);
+      int8_quantize<float><<<blocks, block, 0, st>>>(
+          static_cast<const float*>(x), sx, q, pixels, C, Cp);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (which & 4) {
@@ -368,12 +422,12 @@ extern "C" int int8_conv_forward(const void* x, void* xq, void* scratch,
     const float* w = static_cast<const float*>(sw);
     const float* bi = static_cast<const float*>(bias);
     if (out_code == 0)
-      return launch_conv_bn<bf16>(bn, ks, q, w8, sx, w, bi, out, B, H, W, C,
+      return launch_conv_bn<bf16>(bn, ks, q, w8, sx, w, bi, out, B, H, W, Cp,
                                   F, stride, pad_t, pad_l, Ho, Wo, has_bias,
                                   relu, st);
-    return launch_conv_bn<float>(bn, ks, q, w8, sx, w, bi, out, B, H, W, C, F,
-                                 stride, pad_t, pad_l, Ho, Wo, has_bias, relu,
-                                 st);
+    return launch_conv_bn<float>(bn, ks, q, w8, sx, w, bi, out, B, H, W, Cp,
+                                 F, stride, pad_t, pad_l, Ho, Wo, has_bias,
+                                 relu, st);
   }
   return cudaSuccess;
 }

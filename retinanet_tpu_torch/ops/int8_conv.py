@@ -11,14 +11,22 @@ convolution, and ``float(acc) · (s_x·s_w)`` cast to the output dtype.
 Because s_x spans the batch, an image's result depends on the images that
 share its batch, as in the JAX package.
 
+A grouped conv (``groups`` > 1, kernel ``[F, C/g, k, k]``) is the same
+function as its block-diagonal dense form: the zero weights add nothing to
+the integer sums, and each output channel's amax, hence s_w, is the same.
+B6 runs that dense form; the plain version convolves with ``groups``.
+
 The weights are quantized once per parameter version: ``prepare_weights``
-gives ``Int8Weights`` (w_q laid out ``[F, k·k·C]`` tap-major as the GEMM
-reads it, and s_w), which ``Conv(quantize=True)`` keeps and rebuilds when
+gives ``Int8Weights`` (w_q as the GEMM reads it: the dense kernel laid out
+``[Fp, k·k·Cp]`` tap-major, C and F zero-padded to multiples of
+``PAD``, and s_w), which ``Conv(quantize=True)`` keeps and rebuilds when
 its kernel changes; ``int8_conv(..., weights=None)`` quantizes them per
 call.  For a CUDA tensor the wrapper then launches kernel B6
 (``csrc/int8_conv.cu``) three times: ``int8_amax`` (s_x on the device),
-the quantize pass, and the implicit-GEMM convolution on the int8 tensor
-cores with the dequantizing epilogue.  For a CPU tensor it runs the plain
+the quantize pass (which writes x_q with its channels zero-padded to Cp),
+and the implicit-GEMM convolution on the int8 tensor cores with the
+dequantizing epilogue, which stores the first F of its Fp columns.  C and
+F may be any multiple of 8.  For a CPU tensor it runs the plain
 version, which convolves the quantized integers in float64 (exact: every
 sum stays below 2⁵³) and applies the same fp32 epilogue, so the two agree
 bitwise.
@@ -36,6 +44,7 @@ from torch import Tensor
 
 from retinanet_tpu_torch.models.layers import same_padding
 from retinanet_tpu_torch.ops.cuda import KernelLibrary, check_cuda
+from retinanet_tpu_torch.ops.grouped import block_diagonal
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = KernelLibrary("int8_conv.cu", {
@@ -53,18 +62,37 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # allocated per call, so the buffer never holds more than _XQ_BYTES.
 _AMAX_CTAS = 1024
 _XQ_BYTES = 64 << 20
+# x_q's channels and w_q's rows and reduction are zero-padded to multiples
+# of PAD: the GEMM's stage reads 64-byte halves of a row that must lie in
+# one tap, and its N tiles are multiples of 64.  The padding of C
+# multiplies x_q's bytes by Cp / C (4 at C = 16).
+PAD = 64
 _SCRATCH: Dict[Tuple[int, int], Tuple[Tensor, Tensor]] = {}
 # int8_conv_forward's launches, as bits of its ``which``.
 AMAX, QUANTIZE, GEMM = 1, 2, 4
 
 
+def padded(n: int) -> int:
+    """``n`` rounded up to a multiple of ``PAD``."""
+    return -(-n // PAD) * PAD
+
+
 class Int8Weights(NamedTuple):
-    """A kernel quantized for B6: ``w_q`` int8 ``[F, kh·kw·C]`` with k
-    tap-major (dy, dx, c), ``s_w`` fp32 ``[F]``, and the OIHW ``shape`` of
-    the kernel they came from."""
+    """A kernel quantized for B6: ``w_q`` int8 ``[Fp, kh·kw·Cp]``, the
+    dense (block-diagonal where grouped) kernel with k tap-major (dy, dx,
+    c) and zeros past F rows and C channels; ``s_w`` fp32 ``[F]``; the
+    OIHW ``shape`` of the kernel they came from and its ``groups``."""
     w_q: Tensor
     s_w: Tensor
     shape: Tuple[int, int, int, int]
+    groups: int = 1
+
+    def dense_oihw(self) -> Tensor:
+        """w_q as the dense int8 OIHW kernel ``[F, C, kh, kw]``."""
+        f, cg, kh, kw = self.shape
+        c = cg * self.groups
+        return (self.w_q.view(-1, kh, kw, padded(c))[:f, :, :, :c]
+                .permute(0, 3, 1, 2))
 
 
 def quantize_activations(x: Tensor) -> Tensor:
@@ -88,14 +116,20 @@ def quantize_weights(kernel: Tensor) -> Tuple[Tensor, Tensor]:
     return w_q.to(torch.int8), s_w
 
 
-def prepare_weights(kernel: Tensor) -> Int8Weights:
-    """``quantize_weights`` of an OIHW kernel, laid out as B6's GEMM reads
-    it (bitwise the same integers and scales)."""
-    f, c, kh, kw = kernel.shape
+def prepare_weights(kernel: Tensor, groups: int = 1) -> Int8Weights:
+    """``quantize_weights`` of an OIHW kernel (grouped ``[F, C/g, kh, kw]``
+    for ``groups`` g), laid out as B6's GEMM reads it: block-diagonal
+    dense, padded with zeros (bitwise the same integers and scales)."""
     w_q, s_w = quantize_weights(kernel)
+    if groups > 1:
+        w_q = block_diagonal(w_q, groups)
+    f, c, kh, kw = w_q.shape
+    layout = torch.zeros(padded(f), kh, kw, padded(c), dtype=torch.int8,
+                         device=kernel.device)
+    layout[:f, :, :, :c] = w_q.permute(0, 2, 3, 1)
     prepare_weights.builds += 1
-    return Int8Weights(w_q.permute(0, 2, 3, 1).reshape(f, kh * kw * c)
-                       .contiguous(), s_w, (f, c, kh, kw))
+    return Int8Weights(layout.view(padded(f), kh * kw * padded(c)), s_w,
+                       tuple(kernel.shape), groups)
 
 
 prepare_weights.builds = 0
@@ -107,16 +141,17 @@ def _quantize_plain(x: Tensor, s_x: Tensor) -> Tensor:
 
 def _conv_quantized_plain(x: Tensor, w_q: Tensor, s_w: Tensor, strides: int,
                           out_dtype: torch.dtype, bias: Optional[Tensor],
-                          relu: bool) -> Tensor:
-    """The plain convolution of quantized OIHW weights: x quantized by
-    ``quantize_activations``, integer sums in float64, fp32 epilogue."""
+                          relu: bool, groups: int = 1) -> Tensor:
+    """The plain convolution of quantized OIHW weights (``groups`` of
+    them): x quantized by ``quantize_activations``, integer sums in
+    float64, fp32 epilogue."""
     kh = w_q.shape[2]
     s_x = quantize_activations(x)
     x_q = _quantize_plain(x, s_x).permute(0, 3, 1, 2).double()
     top, bottom = same_padding(x.shape[1], kh, strides)
     left, right = same_padding(x.shape[2], kh, strides)
     acc = F.conv2d(F.pad(x_q, (left, right, top, bottom)), w_q.double(),
-                   stride=strides)
+                   stride=strides, groups=groups)
     y = acc.float() * (s_x * s_w)[None, :, None, None]
     if bias is not None:
         y = y + bias.float()[None, :, None, None]
@@ -128,12 +163,14 @@ def _conv_quantized_plain(x: Tensor, w_q: Tensor, s_w: Tensor, strides: int,
 def int8_conv_plain(x: Tensor, kernel: Tensor, strides: int = 1,
                     out_dtype: torch.dtype = torch.bfloat16,
                     bias: Optional[Tensor] = None,
-                    relu: bool = False) -> Tensor:
-    """Plain PyTorch version.  x [B,H,W,C] (NHWC), kernel OIHW fp32;
-    returns NHWC ``out_dtype``.  ``bias``/``relu`` follow ``int8_conv3x3``:
-    added in fp32 after the dequantization, then relu, then the cast."""
+                    relu: bool = False, groups: int = 1) -> Tensor:
+    """Plain PyTorch version.  x [B,H,W,C] (NHWC), kernel OIHW fp32
+    (``[F, C/g, k, k]`` for ``groups`` g); returns NHWC ``out_dtype``.
+    ``bias``/``relu`` follow ``int8_conv3x3``: added in fp32 after the
+    dequantization, then relu, then the cast."""
     w_q, s_w = quantize_weights(kernel)
-    return _conv_quantized_plain(x, w_q, s_w, strides, out_dtype, bias, relu)
+    return _conv_quantized_plain(x, w_q, s_w, strides, out_dtype, bias, relu,
+                                 groups)
 
 
 def tile_n(f: int, m: int, k: int) -> int:
@@ -177,7 +214,7 @@ def scratch(device: torch.device, stream: Optional[int] = None,
 @functools.lru_cache(maxsize=None)
 def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
               k_shape: Tuple[int, ...], strides: int,
-              out_dtype: torch.dtype):
+              out_dtype: torch.dtype, groups: int = 1):
     """Checks one conv's shapes and dtypes, once per geometry, and returns
     (the address of ``int8_conv_forward``'s ``geom`` array: in_code, B, H,
     W, C, F, k, stride, pad_t, pad_l, Ho, Wo, out_code; the array; the
@@ -185,12 +222,13 @@ def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
     alive."""
     bsz, h, w, c = x_shape
     f, cin, kh, kw = k_shape
-    if cin != c or kh != kw or kh not in (1, 3) or strides not in (1, 2):
+    if (cin * groups != c or f % groups or kh != kw or kh not in (1, 3)
+            or strides not in (1, 2)):
         raise ValueError(f"B6 takes a 1x1 or 3x3 OIHW kernel with stride 1 "
-                         f"or 2 over x's {c} channels, got kernel "
-                         f"{tuple(k_shape)}, stride {strides}")
-    if c % 64 or f % 64:
-        raise ValueError(f"B6 needs C and F divisible by 64, got C={c}, "
+                         f"or 2 over x's {c} channels in {groups} groups, "
+                         f"got kernel {tuple(k_shape)}, stride {strides}")
+    if c % 8 or f % 8:
+        raise ValueError(f"B6 needs C and F divisible by 8, got C={c}, "
                          f"F={f}")
     if x_dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise ValueError(f"B6 takes bf16 or fp32 in and out, got "
@@ -202,7 +240,14 @@ def _geometry(x_shape: Tuple[int, ...], x_dtype: torch.dtype,
                                strides, top, left, ho, wo,
                                _DTYPE_CODES[out_dtype])
     return (ctypes.addressof(geom), geom,
-            tile_n(f, bsz * ho * wo, kh * kh * c), (bsz, ho, wo, f))
+            tile_n(padded(f), bsz * ho * wo, kh * kh * padded(c)),
+            (bsz, ho, wo, f))
+
+
+def xq_bytes(x_shape: Tuple[int, ...]) -> int:
+    """Bytes of B6's x_q for an NHWC x: its channels padded to Cp."""
+    b, h, w, c = x_shape
+    return b * h * w * padded(c)
 
 
 def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
@@ -210,12 +255,12 @@ def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
            relu: bool = False, which: int = AMAX | QUANTIZE | GEMM,
            stream: Optional[int] = None) -> None:
     """B6's launches on x [B,H,W,C] into out [B,Ho,Wo,F] (bf16 or fp32),
-    with x_q (int8, at least x's size) and ``work`` (``scratch``) as
+    with x_q (int8, at least ``xq_bytes``) and ``work`` (``scratch``) as
     scratch; ``bias`` contiguous fp32 or None.  ``which`` picks the
     launches (the GEMM alone reads the x_q and s_x a previous call left),
     ``stream`` the CUDA stream (default: the current one)."""
     geom, _, tile, _ = _geometry(x.shape, x.dtype, weights.shape, strides,
-                                 out.dtype)
+                                 out.dtype, weights.groups)
     LIB.call("int8_conv_forward", x.data_ptr(), x_q.data_ptr(),
              work.data_ptr(), weights.w_q.data_ptr(), weights.s_w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
@@ -225,10 +270,10 @@ def launch(x: Tensor, x_q: Tensor, work: Tensor, weights: Int8Weights,
 
 def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
                     out_dtype: torch.dtype, bias: Optional[Tensor],
-                    relu: bool,
-                    weights: Optional[Int8Weights] = None) -> Tensor:
+                    relu: bool, weights: Optional[Int8Weights] = None,
+                    groups: int = 1) -> Tensor:
     out_shape = _geometry(x.shape, x.dtype, kernel.shape, strides,
-                          out_dtype)[3]
+                          out_dtype, groups)[3]
     if kernel.device != x.device or (bias is not None
                                      and bias.device != x.device):
         raise ValueError(f"kernel and bias must lie on {x.device}")
@@ -237,15 +282,16 @@ def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
                          f"{bias.numel()}")
     check_cuda(x, "x", x.dtype)
     if weights is None:
-        weights = prepare_weights(kernel)
-    if weights.shape != kernel.shape:
-        raise ValueError(f"prepared weights of shape {weights.shape} do not "
-                         f"fit kernel {tuple(kernel.shape)}")
+        weights = prepare_weights(kernel, groups)
+    if weights.shape != kernel.shape or weights.groups != groups:
+        raise ValueError(f"prepared weights of shape {weights.shape} in "
+                         f"{weights.groups} groups do not fit kernel "
+                         f"{tuple(kernel.shape)} in {groups}")
     check_cuda(weights.w_q, "w_q", torch.int8)
     bias32 = bias.float().contiguous() if bias is not None else None
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
     stream = current_stream(x.device)
-    work, x_q = scratch(x.device, stream, x.numel())
+    work, x_q = scratch(x.device, stream, xq_bytes(x.shape))
     launch(x, x_q, work, weights, out, strides, bias32, relu, stream=stream)
     int8_conv.launches += 1
     return out
@@ -253,22 +299,23 @@ def _int8_conv_cuda(x: Tensor, kernel: Tensor, strides: int,
 
 def int8_conv(x: Tensor, kernel: Tensor, strides: int = 1,
               out_dtype: Optional[torch.dtype] = None,
-              weights: Optional[Int8Weights] = None) -> Tensor:
+              weights: Optional[Int8Weights] = None,
+              groups: int = 1) -> Tensor:
     """``_int8_conv`` of the JAX package: x [B,H,W,C] (NHWC, bf16 or fp32),
-    kernel OIHW fp32 (as the port stores it), k ∈ {1, 3}, stride ∈ {1, 2},
-    TF-SAME.  Returns NHWC in ``out_dtype`` (default x's).  ``weights``:
-    the kernel's ``prepare_weights``, kept by the caller; without it the
-    kernel is quantized here.  On CUDA, C and F must be multiples of 64."""
+    kernel OIHW fp32 (as the port stores it; ``[F, C/g, k, k]`` for
+    ``groups`` g), k ∈ {1, 3}, stride ∈ {1, 2}, TF-SAME.  Returns NHWC in
+    ``out_dtype`` (default x's).  ``weights``: the kernel's
+    ``prepare_weights``, kept by the caller; without it the kernel is
+    quantized here.  On CUDA, C and F must be multiples of 8."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if not x.is_cuda:
         if weights is None:
-            return int8_conv_plain(x, kernel, strides, out_dtype)
-        f, c, kh, kw = weights.shape
-        w_q = weights.w_q.view(f, kh, kw, c).permute(0, 3, 1, 2)
-        return _conv_quantized_plain(x, w_q, weights.s_w, strides, out_dtype,
-                                     None, False)
+            return int8_conv_plain(x, kernel, strides, out_dtype,
+                                   groups=groups)
+        return _conv_quantized_plain(x, weights.dense_oihw(), weights.s_w,
+                                     strides, out_dtype, None, False)
     return _int8_conv_cuda(x, kernel, strides, out_dtype, None, False,
-                           weights)
+                           weights, groups)
 
 
 int8_conv.launches = 0

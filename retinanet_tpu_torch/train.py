@@ -261,8 +261,13 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
 
     ``images`` [B,H,W,3] (normalized float, or uint8), ``boxes`` [B,M,4],
     ``class_ids`` and ``box_mask`` [B,M], all on the model's device.
-    ``generator`` is the step's dropout stream; no layer of
-    ``resnet_50_dense`` draws from it.  ``with_metrics=False`` skips the
+    ``generator`` is the step's dropout stream: each forward (each
+    micro-batch) draws one seed from it (``models/layers.DropoutKeys``),
+    which every dropout site folds with its index, so a recomputation
+    under ``remat`` draws the same masks.  A CPU generator draws without
+    synchronising with the card.  MobileNetV2 and DenseNet need it when
+    their dropout rate is above 0; the ResNet-50 backbones have no
+    dropout.  ``with_metrics=False`` skips the
     diagnostics (histograms, IoU metrics, fg count).  ``grad_accum > 1``
     runs that many micro-batches and averages their gradients and loss
     scalars; the diagnostics stay full-batch sums.  Metrics are device
@@ -279,7 +284,8 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
     num_classes = model.num_classes
 
     def micro_fn(params: List[Tensor], images: Tensor, boxes: Tensor,
-                 class_ids: Tensor, box_mask: Tensor):
+                 class_ids: Tensor, box_mask: Tensor,
+                 generator: Optional[torch.Generator]):
         image_hw = tuple(images.shape[1:3])
         images = maybe_normalize(images, config.data)
         with torch.no_grad():
@@ -288,7 +294,7 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
                 config.assign)
             ct, rt, tm = (flatten_levels(cls_t), flatten_levels(regr_t),
                           flatten_levels(masks))
-        out = model(images, training=True)
+        out = model(images, training=True, generator=generator)
         cl = flatten_levels(out["classifications"])
         rg = flatten_levels(out["regressions"])
         class_loss, regr_loss = detection_loss(ct, cl, rt, rg, tm,
@@ -333,7 +339,7 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
             g, s = micro_fn(params, images[part], boxes[part],
-                            class_ids[part], box_mask[part])
+                            class_ids[part], box_mask[part], generator)
             if grads is None:
                 grads, sums = g, s
             else:
@@ -873,8 +879,8 @@ class Trainer:
                                      with_metrics=False)
         step_full = make_train_step(self.model, self.levels, cfg,
                                     with_metrics=True)
-        step_gen = torch.Generator(self.device).manual_seed(
-            cfg.train.seed + 1)
+        # The steps' dropout seeds, drawn on the host (no synchronisation).
+        step_gen = torch.Generator().manual_seed(cfg.train.seed + 1)
         t_last = time.time()
         steps_since_log = 0  # actual steps elapsed since t_last: the first
         # logged step (step 1, which also pays the warm-up) divides by 1,
@@ -1007,7 +1013,7 @@ def benchmark_train(config: Config, batch_size: int = 32, steps: int = 10,
     step_fn = make_train_step(model, levels, config, with_metrics=False)
     batch = synthetic_batch(batch_size, config.data.image_size,
                             config.assign.max_boxes, device)
-    gen = torch.Generator(device).manual_seed(1)
+    gen = torch.Generator().manual_seed(1)  # dropout seeds, on the host
 
     torch.cuda.reset_peak_memory_stats(device)
     metrics = None
@@ -1070,7 +1076,7 @@ def benchmark_train_pipeline(config: Config, batch_size: int = 32,
         model, config,
         init_params(config, torch.Generator().manual_seed(0), num_classes))
     step_fn = make_train_step(model, levels, config, with_metrics=False)
-    gen = torch.Generator(device).manual_seed(1)
+    gen = torch.Generator().manual_seed(1)  # dropout seeds, on the host
 
     def batches():
         epoch = 0

@@ -11,6 +11,7 @@ import torch
 
 from retinanet_tpu.export import export_model
 from retinanet_tpu.models.retinanet import RetinaNet as JaxRetinaNet
+from retinanet_tpu_torch.config import Config
 from retinanet_tpu_torch.export import load_exported, params_from_flax
 from retinanet_tpu_torch.models.retinanet import RetinaNet, build_backbone
 
@@ -107,15 +108,20 @@ def test_export_roundtrip_into_port(flat, tmp_path, dtype):
 
 
 def test_unported_backbones_raise():
-    """The other backbones still raise (ROADMAP A.6); int8 serving of the
-    flagship now builds, with every block conv quantized and the stem
-    float."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        build_backbone("mobilenet_v2")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        build_backbone("mobilenet_v2", quantize=True)
-    net = build_backbone("resnet_50_dense", quantize=True)
-    convs = [m for m in net.modules() if hasattr(m, "quantize")
-             and hasattr(m, "kernel")]
-    assert sum(c.quantize for c in convs) == 52
-    assert not net.ConvGN_0.Conv_0.quantize
+    """Every backbone builds now (ROADMAP A.6 is done) and only an unknown
+    name raises; int8 serving quantizes each one's block convs (52 / 34 /
+    119 / 167 / 52) and keeps its stem float."""
+    with pytest.raises(ValueError, match="unknown backbone"):
+        build_backbone("resnet_101")
+    counts = {"resnet_50": 52, "mobilenet_v2": 34, "densenet_121": 119,
+              "densenet_169": 167, "resnet_50_dense": 52}
+    for name, count in counts.items():
+        net = build_backbone(name, quantize=True)
+        convs = [m for m in net.modules() if hasattr(m, "quantize")
+                 and hasattr(m, "kernel")]
+        assert sum(c.quantize for c in convs) == count, name
+        stem = net.Conv_0 if name.startswith("densenet") else \
+            net.ConvGN_0.Conv_0
+        assert not stem.quantize, name
+    model = RetinaNet.from_config(Config().model)
+    assert model.backbone == "resnet_50"

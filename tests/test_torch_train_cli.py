@@ -3,8 +3,9 @@
 ``MetricsWriter``/``TBEventWriter`` against JAX's, and the chain
 ``train`` → ``export --experiment`` → ``evaluate --from-export``, whose
 metrics equal ``evaluate --experiment``'s, with ``detect --experiment``;
-the default backbone raises naming ROADMAP A.6 and every multi-device or
-multi-process run naming A.7.  The flagship at 64 px, 3 shapes classes."""
+the default backbone (ResNeXt-50) trains, and every multi-device or
+multi-process run raises naming A.7.  The flagship at 64 px, 3 shapes
+classes."""
 
 import dataclasses
 import json
@@ -194,9 +195,24 @@ def test_detect_cli_serves_the_experiment(cli_run):
 
 
 def test_default_backbone_raises_naming_a6(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        train.main(["--dataset", "shapes", "unused", "2", "64",
-                    "--experiment", str(tmp_path), "--device", "cpu"])
+    """The default ``--backbone`` (``resnet_50``, ResNeXt-50) trains: two
+    steps at 64 px on the CPU (fp32 compute, as ``cli_run``), finite
+    losses, a checkpoint at step 2."""
+    real = train.parse_args
+    train.parse_args = _fp32_parse(real)
+    try:
+        state = train.main(["--dataset", "shapes", str(tmp_path / "s"), "4",
+                            str(SIZE), "--experiment", str(tmp_path / "e"),
+                            "--scale", str(SIZE), "--batch-size", "2",
+                            "--epochs", "1", "--steps-per-epoch", "2",
+                            "--log-every", "1", "--device", "cpu"])
+    finally:
+        train.parse_args = real
+    assert state.step == 2
+    records = _records(str(tmp_path / "e"))
+    assert [r["step"] for r in records] == [1, 2]
+    assert all(np.isfinite(r["total_loss"]) for r in records)
+    assert CheckpointStore(str(tmp_path / "e")).checkpoint_steps() == [2]
 
 
 @pytest.mark.parametrize("case", ["spatial", "num_devices", "world_size",
