@@ -134,7 +134,27 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    CLI at its default ``--backbone`` (BACKBONE_FIT_*: a resume, finite
    losses, a falling data loss), ``evaluate --experiment`` and ``detect
    --experiment``;
-16. fit (last): the training loop as a user drives it
+16. distributed: the port's data-parallel runs as ``torchrun`` starts
+   them, two ranks spawned on the one card over gloo (DIST_*): the
+   flagship at 640 px, full width and depth, global batch 4, two fp32
+   steps of the plain path (TF32 off, weight decay on) against one
+   process on the same global batches (total_loss and grad_norm relative,
+   every parameter absolute, at the JAX shard_map test's bounds widened to
+   about twice the one-process fp32 steps' recorded distance to float64,
+   fixed; that distance itself held to them as a witness), every
+   rank's parameters bitwise rank 0's; a bf16 ``fused_train`` step (12 B1
+   + 12 B3 on each rank) whose every gradient leaf is held to the float32
+   one-process step as ``check_training`` holds the kernel path's, and a
+   planted fault (the loss's global sums left local) that must fail it;
+   ``train.main`` on each rank, 4 steps at 320 px with a resume (one
+   metrics writer, whole checkpoints, the restore logged on each rank);
+   ``evaluate --from-export`` on the eval phase's set (12 B1 + 1 B2 a
+   batch on each rank's shard), the same metrics on both ranks and
+   within EVAL_METRIC_BOUND of one process; ``Detector(devices=)`` with
+   two replicas on the card, bitwise one device on each half of a host
+   batch; a one-rank NCCL group through the fp32 step; per-rank step ms
+   and peak memory (two ranks share one card: no scaling is measured);
+17. fit (last): the training loop as a user drives it
    (``train.parse_args`` and ``Trainer.fit``, what ``train.main`` does,
    with a checkpoint every 100 steps) on the JAX package's shapes-200
    convergence setup at 320 px (FIT_*): the kernel path
@@ -152,7 +172,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``Trainer.write_image_summaries`` (24 PNGs).
 
 ``--phases`` runs a comma-separated subset (``build,checks,int8,proj,gn,
-entry,serving,decode,eval,training,timing,breakdown,backbones,fit``) and
+entry,serving,decode,eval,training,timing,breakdown,backbones,distributed,
+fit``) and
 prints no result lines: for a first call after a kernel change.  ``--phases parent`` (not
 in the default run) compares kernels with a parent commit's, each whose
 module is in ``parent_kernels/`` (git-ignored): B1 and B5
@@ -178,7 +199,9 @@ import io
 import json
 import logging
 import math
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -200,13 +223,15 @@ from retinanet_tpu_torch.infer import (Detector, benchmark,
                                        forward_gflops_per_image)
 from retinanet_tpu_torch.models.layers import (GN_KERNEL_MIN_ELEMENTS, Conv,
                                                ConvGN, Dropout, DropoutKeys,
-                                               GroupNorm, group_norm,
-                                               max_pool_same, resolve_groups,
+                                               GroupNorm, get_activation,
+                                               group_norm, max_pool_same,
+                                               resolve_groups,
                                                use_group_norm_kernel)
-from retinanet_tpu_torch.models import resnet
+from retinanet_tpu_torch.models import layers, resnet
 from retinanet_tpu_torch.models.resnet import ResNetBottleneck
 from retinanet_tpu_torch.models.retinanet import RetinaNet
 from retinanet_tpu_torch.ops import bottleneck as b1
+from retinanet_tpu_torch.ops import losses
 from retinanet_tpu_torch.ops import bottleneck_bwd as b3
 from retinanet_tpu_torch.ops import groupnorm as b4
 from retinanet_tpu_torch.ops import int8_conv as b6
@@ -214,6 +239,7 @@ from retinanet_tpu_torch.ops import nms as b2
 from retinanet_tpu_torch.ops import stem as b7
 from retinanet_tpu_torch.ops.anchors import build_levels
 from retinanet_tpu_torch.ops.grouped import block_diagonal
+from retinanet_tpu_torch.parallel import distributed
 from retinanet_tpu_torch.train import (benchmark_train,
                                        benchmark_train_pipeline,
                                        create_train_state, make_train_step,
@@ -341,7 +367,7 @@ STEM = (320, 320, 64)
 QUEUE_CYCLES = 10_000_000
 PHASES = ("build", "checks", "int8", "proj", "gn", "entry", "serving",
           "decode", "eval", "training", "timing", "breakdown", "backbones",
-          "fit")
+          "distributed", "fit")
 # The eval phase: ``evaluate.main`` on a 640-px shapes set of EVAL_IMAGES
 # images at batch EVAL_BATCH, from an export of seeded ``init_params``
 # weights (resnet_50_dense, the three shapes classes), on each path: its
@@ -413,6 +439,28 @@ FIT_AP50_FLOOR, FIT_MAP_GAP, FIT_B4_GAP = 0.5, 0.05, 0.02
 # the fit phase trains and serves them at FIT_BATCH.
 FIT_STAGES = tuple((name, h * FIT_SIZE // SIZE, w * FIT_SIZE // SIZE, c, f,
                     count) for name, h, w, c, f, count in STAGES)
+# The distributed phase (``check_distributed``): DIST_WORLD ranks, each a
+# spawned process on the one card over gloo (NCCL puts no two ranks on one
+# device), on slices of a global batch of DIST_BATCH: DIST_STEPS fp32
+# steps against one process, one counted bf16 step then DIST_TIMED_STEPS
+# timed, ``train.main`` for DIST_FIT_STEPS steps at DIST_FIT_SIZE px on
+# DIST_FIT_IMAGES images.  DIST_*_RTOL/ATOL are the JAX shard_map test's
+# bounds (tests/test_parallel.py: total_loss and grad_norm relative,
+# parameters absolute).  At 640 px a rank's batch of 2 runs other cuDNN
+# fp32 algorithms than one process's 4, so the fp32 two-rank gap to one
+# process is held to DIST_FP32_BOUNDS: those bounds widened to about twice
+# what one fp32 process stood from the same steps in float64 on the H100
+# (3.1e-7 / 3.46e-4 / 1.49e-5; PERF.md's distributed findings).  The
+# float64 steps run on as a witness held to the same bounds, so a drift of
+# fp32 or of the float64 reference fails instead of widening the gate.  A
+# rank that fails, or no answer from every rank within DIST_TIMEOUT,
+# fails the phase.
+DIST_WORLD, DIST_BATCH, DIST_STEPS, DIST_TIMED_STEPS = 2, 4, 2, 3
+DIST_LOSS_RTOL, DIST_NORM_RTOL, DIST_PARAM_ATOL = 1e-5, 1e-4, 2e-5
+DIST_FP32_BOUNDS = {"total_loss": 1e-5, "grad_norm": 7e-4,
+                    "param_max_abs": 3e-5}
+DIST_FIT_IMAGES, DIST_FIT_SIZE, DIST_FIT_STEPS = 16, 320, 4
+DIST_TIMEOUT = 420  # seconds for every rank's figures
 # Run only when asked for (``--phases build,spread``): both fit paths
 # trained from each of SPREAD_SEEDS as the fit phase trains them, and each
 # model's held-out mAP, served from its last checkpoint and as the mean of
@@ -3390,6 +3438,479 @@ def fit_surfaces(root, device):
                              f"missing {sorted(want - written)}")
 
 
+def free_port() -> int:
+    """A TCP port on the loopback that no one holds now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_batches(device):
+    """DIST_STEPS global batches of DIST_BATCH images at SIZE px from a
+    seeded generator: normal images, three boxes of random classes each
+    (sides 0.35-0.7 of the canvas), 100 box slots."""
+    gen = torch.Generator().manual_seed(11)
+    batches = []
+    for _ in range(DIST_STEPS):
+        b = DIST_BATCH
+        images = torch.randn(b, SIZE, SIZE, 3, generator=gen)
+        corner = torch.rand(b, 3, 2, generator=gen) * 0.3
+        boxes = torch.zeros(b, 100, 4)
+        boxes[:, :3] = torch.cat(
+            [corner, corner + 0.35 + torch.rand(b, 3, 2, generator=gen)
+             * 0.35], -1)
+        ids = torch.zeros(b, 100, dtype=torch.int32)
+        ids[:, :3] = torch.randint(0, 80, (b, 3), generator=gen,
+                                   dtype=torch.int32)
+        mask = torch.zeros(b, 100, dtype=torch.bool)
+        mask[:, :3] = True
+        batches.append(tuple(t.to(device)
+                             for t in (images, boxes, ids, mask)))
+    return batches
+
+
+def group_norm_float64(x, gamma, beta, groups, eps=1e-5, activation=None):
+    """``layers.group_norm`` with its statistics and affine in float64
+    (the model's own takes fp32 statistics whatever the input dtype)."""
+    n, c, h, w = x.shape
+    xg = x.double().reshape(n, resolve_groups(c, groups), -1)
+    mean = xg.mean(-1, keepdim=True)
+    var = torch.clamp((xg * xg).mean(-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).view(n, c, h, w)
+    y = y * gamma.double()[:, None, None] + beta.double()[:, None, None]
+    return y if activation is None else get_activation(activation)(y)
+
+
+@contextlib.contextmanager
+def float64_model():
+    """Every GroupNorm of a model built inside in float64."""
+    real = layers.group_norm
+    layers.group_norm = group_norm_float64
+    try:
+        yield
+    finally:
+        layers.group_norm = real
+
+
+def dist_steps(config, batches, device, group):
+    """``make_train_step(group=)`` of ``config`` from the seeded weights of
+    ``check_training`` over ``batches``, each cut to this rank's slice
+    when ``group`` is given.  Returns the parameters as one flat tensor,
+    each step's TRAIN_KEYS scalars and ms (host clock between
+    synchronisations), and the first step's gradient by parameter (from a
+    zero momentum trace, the trace after one step)."""
+    model = RetinaNet.from_config(config.model, 9, 80).to(device)
+    if config.model.compute_dtype == "float64":
+        model.double()
+    state = create_train_state(model, config, init_params(
+        config, torch.Generator().manual_seed(0), 80))
+    step = make_train_step(model, build_levels(), config, with_metrics=False,
+                           group=group)
+    gen = torch.Generator().manual_seed(1)
+    scalars, ms, first = [], [], None
+    for batch in batches:
+        if group is not None:
+            start, size = distributed.process_batch_slice(batch[0].shape[0])
+            batch = tuple(t[start:start + size] for t in batch)
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        state, metrics = step(state, *batch, gen)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        scalars.append({k: float(metrics[k]) for k in TRAIN_KEYS})
+        if first is None:
+            first = {n: t.clone() for n, t in
+                     zip(state.params, state.opt_state["trace"])}
+    flat = torch.cat([p.detach().reshape(-1).float()
+                      for p in state.params.values()])
+    return flat, scalars, ms, first
+
+
+def bucket_ms(numel, device, group, reps=3):
+    """ms of one all-reduce of a ``numel`` fp32 bucket on ``device`` over
+    ``group`` (host clock between synchronisations), the best of
+    ``reps``."""
+    bucket = torch.ones(numel, device=device)
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        torch.distributed.all_reduce(bucket, group=group)
+        torch.cuda.synchronize(device)
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return best
+
+
+def same_as_rank_0(flat, group) -> bool:
+    """Whether this rank's ``flat`` equals rank 0's, bit for bit."""
+    lead = flat.clone()
+    torch.distributed.broadcast(lead, src=0, group=group)
+    return torch.equal(lead, flat)
+
+
+def step_gaps(got, want):
+    """Largest relative gaps of total_loss and grad_norm over the steps."""
+    return {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want))
+            for k in ("total_loss", "grad_norm")}
+
+
+def dist_eval_argv(root, artifact, device):
+    dataset = ["shapes", str(root / "shapes"), str(EVAL_IMAGES), str(SIZE)]
+    return ("--dataset", *dataset, "--from-export", artifact,
+            "--batch-size", str(EVAL_BATCH), "--decode-threshold", "0.005",
+            "--device", str(device), *EVAL_PATHS["kernels"][0])
+
+
+def dist_fit_argv(root, device):
+    """The training CLI at DIST_FIT_SIZE px on DIST_FIT_IMAGES shapes
+    images, the kernel path, half of DIST_FIT_STEPS an invocation."""
+    return ["--dataset", "shapes", str(root / "fit_shapes"),
+            str(DIST_FIT_IMAGES), str(DIST_FIT_SIZE), "--experiment",
+            str(root / "fit"), "--backbone", "resnet_50_dense", "--scale",
+            str(DIST_FIT_SIZE), "--batch-size", str(DIST_BATCH), "--epochs",
+            "1", "--steps-per-epoch", str(DIST_FIT_STEPS // 2),
+            "--log-every", "1", "--dropout", "0", "--device", str(device),
+            "--fused-train"]
+
+
+def data_parallel_serving(device, artifact):
+    """``Detector(devices=[device, device])`` from the export on a host
+    batch of EVAL_BATCH images, each half copied from pinned host memory
+    straight to its replica, against one device's detector on each half
+    (the same shapes, so the same algorithms): whether every output is
+    bitwise equal and in batch order, and the ms of each (host clock
+    between synchronisations, the best of 3)."""
+    one = Detector.from_export(artifact, device=device)
+    two = Detector.from_export(artifact, device=device,
+                               devices=[device, device])
+    images = torch.randn(EVAL_BATCH, SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(12))
+    half = EVAL_BATCH // 2
+
+    def timed(fn):
+        best, out = math.inf, None
+        for _ in range(3):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(device)
+            best = min(best, (time.perf_counter() - t) * 1e3)
+        return out, best
+
+    got, two_ms = timed(lambda: two(images))
+    want, one_ms = timed(lambda: [one(images[:half]), one(images[half:])])
+    equal = all(torch.equal(g, torch.cat([w[i] for w in want]))
+                for i, g in enumerate(got))
+    return {"bitwise": equal, "two_replicas_ms": two_ms,
+            "one_device_two_halves_ms": one_ms}
+
+
+def distributed_rank(rank, device, ports, root, artifact, results):
+    """One rank of the distributed phase, in a spawned process, joined as
+    ``torchrun`` joins a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
+    the address in the environment) on the one card: every rank is given
+    ``cuda:0``, so by ``backend_for`` they share it over gloo whatever the
+    host's card count.  Puts (rank, its
+    figures, None) in ``results``, or (rank, None, the traceback)."""
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.update(
+            RANK=str(rank), WORLD_SIZE=str(DIST_WORLD), LOCAL_RANK=str(rank),
+            LOCAL_WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="127.0.0.1",
+            MASTER_PORT=str(ports[0]))
+        root, device = Path(root), torch.device(device)
+        with LogCapture(distributed.__name__) as joined:
+            backend = distributed.initialize(device)
+        group = distributed.group()
+        out = {"backend": backend, "joined": joined}
+        batches = dist_batches(device)
+
+        # The plain path in fp32 against one process on the global batches.
+        f32 = train_config(DIST_BATCH, fused=False)
+        f32 = f32.replace(model=dataclasses.replace(
+            f32.model, compute_dtype="float32"))
+        flat, out["fp32_steps"], out["fp32_ms"], _ = dist_steps(
+            f32, batches, device, group)
+        out["fp32_same_as_rank_0"] = same_as_rank_0(flat, group)
+        out["bucket_ms"] = bucket_ms(flat.numel(), device, group)
+
+        # The kernel path in bf16: one counted step, then timed ones.
+        config = train_config(DIST_BATCH)
+        counters = eval_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        _, k_steps, out["kernel_ms"], got = dist_steps(
+            config, [batches[i % DIST_STEPS]
+                     for i in range(1 + DIST_TIMED_STEPS)], device, group)
+        torch.cuda.synchronize()
+        out["kernel_launches"] = {k: fn.launches for k, fn in
+                                  counters.items()}
+        out["kernel_steps"] = 1 + DIST_TIMED_STEPS
+        # The planted fault, on every rank: the seam returns the local sum.
+        real = losses.global_sum
+        losses.global_sum = lambda x, group=None: x
+        try:
+            fault = dist_steps(config, batches[:1], device, group)
+        finally:
+            losses.global_sum = real
+        fault = (fault[1][0], fault[3])
+        got = (k_steps[0], got)
+
+        if rank == 0:  # one process on the global batches, and the verdicts
+            one_flat, one_steps, out["one_process_fp32_ms"], truth = \
+                dist_steps(f32, batches, device, None)
+            out["fp32_gaps"] = step_gaps(out["fp32_steps"], one_steps)
+            out["fp32_param_max_abs"] = float((flat - one_flat).abs().max())
+            # How far fp32 itself stands from the step in float64.
+            with float64_model():
+                f64_flat, f64_steps, _, _ = dist_steps(
+                    f32.replace(model=dataclasses.replace(
+                        f32.model, compute_dtype="float64")),
+                    batches, device, None)
+            out["fp32_vs_float64"] = {
+                **step_gaps(one_steps, f64_steps),
+                "param_max_abs": float((one_flat - f64_flat).abs().max())}
+            del f64_flat
+            _, plain_steps, _, plain = dist_steps(
+                train_config(DIST_BATCH, fused=False), batches[:1], device,
+                None)
+            with torch.device("meta"):
+                meta = RetinaNet.from_config(config.model, 9, 80)
+            identity = [f"{m}.{p}" for m, mod in meta.named_modules()
+                        if isinstance(mod, ResNetBottleneck)
+                        and not mod.project
+                        for p, _ in mod.named_parameters()]
+            out["kernels_agree"] = compare_steps(
+                f"distributed kernels, rank 0 of {DIST_WORLD}", got,
+                (plain_steps[0], plain), (one_steps[0], truth), identity)
+            out["fault_agrees"] = compare_steps(
+                "distributed fault: local sums", fault,
+                (plain_steps[0], plain), (one_steps[0], truth), identity)
+            del truth, plain
+        del got, fault, flat
+        torch.cuda.empty_cache()
+        distributed.barrier()
+
+        # Trainer.fit as train.main runs it, then a resume.
+        fits = []
+        for _ in range(2):
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.monotonic()
+            with LogCapture(train.__name__) as messages:
+                state = train.main(dist_fit_argv(root, device))
+            torch.cuda.synchronize()
+            fits.append({"step": int(state.step),
+                         "seconds": time.monotonic() - t,
+                         "launches": {k: fn.launches
+                                      for k, fn in counters.items()},
+                         "restored": [m for m in messages
+                                      if m.startswith("restored")]})
+            del state
+        out["fit"] = fits
+        exp = root / "fit"
+        out["fit_records"] = [json.loads(line)["step"] for line in
+                              (exp / "metrics.jsonl").read_text().splitlines()]
+        store = train.CheckpointStore(str(exp))
+        out["fit_checkpoints"] = {
+            step: sorted(os.listdir(exp / "checkpoints" / f"step_{step}"))
+            for step in store.checkpoint_steps()}
+        out["fit_tmp"] = [n for n in os.listdir(exp / "checkpoints")
+                          if "tmp" in n]
+        torch.cuda.empty_cache()
+
+        # evaluate --from-export: this rank's shard, the whole set's metrics.
+        metrics, per_batch, _ = run_eval(
+            f"distributed kernels, rank {rank} of {DIST_WORLD}",
+            dist_eval_argv(root, artifact, device),
+            EVAL_PATHS["kernels"][1], EVAL_IMAGES // EVAL_BATCH // DIST_WORLD)
+        out["eval"] = evaluate.strict_json(metrics)
+        out["eval_launches_per_batch"] = per_batch
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        distributed.barrier()
+        torch.distributed.destroy_process_group()
+
+        if rank == 0:  # a one-rank NCCL group through the same step
+            backend, reason = distributed.backend_for(device, 1)
+            torch.distributed.init_process_group(
+                backend, init_method=f"tcp://127.0.0.1:{ports[1]}",
+                world_size=1, rank=0)
+            try:
+                nccl_flat, nccl_steps, _, _ = dist_steps(
+                    f32, batches, device, torch.distributed.group.WORLD)
+            finally:
+                torch.distributed.destroy_process_group()
+            out["nccl"] = {
+                "backend": backend, "reason": reason,
+                "gaps": step_gaps(nccl_steps, one_steps),
+                "param_max_abs": float((nccl_flat - one_flat).abs().max()),
+                "bitwise": torch.equal(nccl_flat, one_flat)}
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+        raise
+    results.put((rank, out, None))
+
+
+def check_distributed(device):
+    """The distributed phase (DIST_* constants): DIST_WORLD ranks, each a
+    spawned process on the one card over gloo, as ``torchrun`` would start
+    them on a host whose ranks share a card; gates every rank's figures
+    and, in this process, data-parallel serving (``data_parallel_serving``).
+    Returns the kernels' launches on each rank: B1 and B3 a training step,
+    B2 (and B1) an evaluation batch."""
+    import multiprocessing
+    import queue as queues
+
+    t0 = time.monotonic()
+    root = Path(__file__).resolve().parent / "build" / "dist_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = Config()
+    config = config.replace(model=dataclasses.replace(
+        config.model, backbone="resnet_50_dense", num_classes=3))
+    artifact = str(root / "model.npz")
+    export_model(init_params(config, torch.Generator().manual_seed(0), 3),
+                 ["square", "triangle", "circle"], "resnet_50_dense", SIZE,
+                 artifact)
+    one_process = evaluate.strict_json(run_eval(
+        "distributed reference, one process",
+        dist_eval_argv(root, artifact, device), EVAL_PATHS["kernels"][1],
+        EVAL_IMAGES // EVAL_BATCH)[0])
+    serving = data_parallel_serving(device, artifact)
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    ports = [free_port(), free_port()]
+    procs = [ctx.Process(target=distributed_rank,
+                         args=(rank, str(device), ports, str(root), artifact,
+                               results))
+             for rank in range(DIST_WORLD)]
+    for proc in procs:
+        proc.start()
+    ranks, errors = {}, {}
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while len(ranks) + len(errors) < DIST_WORLD:
+            rank, got, error = results.get(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if error is not None:
+                errors[rank] = error
+                break  # the other ranks may wait on it in a collective
+            ranks[rank] = got
+    except queues.Empty:
+        errors["timeout"] = (f"ranks {sorted(set(range(DIST_WORLD)) - set(ranks))} "
+                             f"gave no result within {DIST_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            proc.join(timeout=30 if not errors else 1)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    if errors:
+        raise AssertionError(f"distributed ranks failed: {errors}")
+    seconds = time.monotonic() - t0
+
+    lead = ranks[0]
+    steps = lead["kernel_steps"]
+    per_rank = {rank: {
+        "backend": r["backend"], "fp32_step_ms": r["fp32_ms"],
+        "kernel_step_ms": r["kernel_ms"],
+        "kernel_launches_per_step": {k: n / steps for k, n in
+                                     r["kernel_launches"].items() if n},
+        "fit_launches_per_step": [
+            {k: n / (DIST_FIT_STEPS // 2) for k, n in f["launches"].items()
+             if n} for f in r["fit"]],
+        "fit_seconds": [f["seconds"] for f in r["fit"]],
+        "gradient_bucket_all_reduce_ms": r["bucket_ms"],
+        "eval_launches_per_batch": r["eval_launches_per_batch"],
+        "peak_gib": r["peak_gib"]} for rank, r in ranks.items()}
+    failed = []
+    if any(r["backend"] != "gloo" for r in ranks.values()):
+        failed.append("backend")
+    # Two fp32 runs, each as far from float64 as the witness, may stand
+    # twice that far apart: DIST_FP32_BOUNDS, fixed from its readings.
+    f64, bounds = lead["fp32_vs_float64"], DIST_FP32_BOUNDS
+    gaps = {**lead["fp32_gaps"], "param_max_abs": lead["fp32_param_max_abs"]}
+    if not all(gaps[k] <= bound for k, bound in bounds.items()):
+        failed.append("fp32 vs one process")
+    if not all(f64[k] <= bound for k, bound in bounds.items()):
+        failed.append("one fp32 process vs float64")
+    if not all(r["fp32_same_as_rank_0"] for r in ranks.values()) or \
+            any(r["fp32_steps"] != lead["fp32_steps"]
+                for r in ranks.values()):
+        failed.append("fp32 ranks not bitwise equal")
+    want = {"b1": 12.0, "b3": 12.0}
+    if any(p["kernel_launches_per_step"] != want
+           or any(f != want for f in p["fit_launches_per_step"])
+           for p in per_rank.values()):
+        failed.append("B1/B3 launches a step")
+    if not lead["kernels_agree"]:
+        failed.append("kernel path vs float32")
+    if lead["fault_agrees"]:
+        failed.append("planted fault passed")
+    for rank, r in ranks.items():
+        if [f["step"] for f in r["fit"]] != [DIST_FIT_STEPS // 2,
+                                              DIST_FIT_STEPS] \
+                or r["fit"][0]["restored"] \
+                or r["fit"][1]["restored"] != [
+                    f"restored checkpoint from step {DIST_FIT_STEPS // 2}"]:
+            failed.append(f"fit steps or restore on rank {rank}")
+    complete = sorted(["opt_state.pt", "params.pt"])
+    if lead["fit_records"] != list(range(1, DIST_FIT_STEPS + 1)) or \
+            lead["fit_checkpoints"] != {DIST_FIT_STEPS // 2: complete,
+                                        DIST_FIT_STEPS: complete} \
+            or lead["fit_tmp"]:
+        failed.append("fit writes")
+    eval_gaps = {k: abs(v - one_process[k]) for k, v in lead["eval"].items()
+                 if isinstance(v, float) and one_process[k] is not None}
+    if any(r["eval"] != lead["eval"] for r in ranks.values()):
+        failed.append("eval metrics differ between ranks")
+    if max(eval_gaps.values()) > EVAL_METRIC_BOUND:
+        failed.append("eval vs one process")
+    if not serving["bitwise"]:
+        failed.append("data-parallel Detector vs one device")
+    nccl = lead["nccl"]
+    if nccl["backend"] != "nccl" or \
+            nccl["gaps"]["total_loss"] > DIST_LOSS_RTOL or \
+            nccl["gaps"]["grad_norm"] > DIST_NORM_RTOL or \
+            not nccl["param_max_abs"] <= DIST_PARAM_ATOL:
+        failed.append("one-rank NCCL group")
+    log("distributed", world=DIST_WORLD, global_batch=DIST_BATCH,
+        steps=DIST_STEPS, joined=lead["joined"], per_rank=per_rank,
+        one_process_fp32_step_ms=lead["one_process_fp32_ms"],
+        fp32_gaps=lead["fp32_gaps"],
+        fp32_param_max_abs=lead["fp32_param_max_abs"],
+        one_process_fp32_vs_float64=f64, fp32_bounds=bounds,
+        jax_bounds={"total_loss_rtol": DIST_LOSS_RTOL,
+                    "grad_norm_rtol": DIST_NORM_RTOL,
+                    "param_atol": DIST_PARAM_ATOL},
+        eval_metric_bound=EVAL_METRIC_BOUND,
+        kernels_agree=lead["kernels_agree"],
+        fault_agrees=lead["fault_agrees"],
+        fit=[{"steps": [f["step"] for f in r["fit"]],
+              "restored": [f["restored"] for f in r["fit"]]}
+             for r in ranks.values()],
+        fit_records=lead["fit_records"],
+        fit_checkpoints=lead["fit_checkpoints"],
+        eval_metrics=lead["eval"], eval_one_process=one_process,
+        eval_gaps=eval_gaps, data_parallel_detector=serving, nccl=nccl,
+        seconds=seconds,
+        nvidia_smi=nvidia_smi(),
+        note=f"{DIST_WORLD} ranks share one card: no scaling is measured",
+        failed=failed)
+    if failed:
+        raise AssertionError(f"distributed phase failed: {failed}")
+    return {"b1": per_rank[0]["kernel_launches_per_step"]["b1"],
+            "b3": per_rank[0]["kernel_launches_per_step"]["b3"],
+            "b2": lead["eval_launches_per_batch"]["b2"],
+            "b1_eval": lead["eval_launches_per_batch"]["b1"]}
+
+
 def check_fit(device):
     """The fit phase (FIT_* constants): both paths trained and gated, the
     mAP gate, B4 and int8 on the trained kernel-path model, and the
@@ -4111,6 +4632,9 @@ def main(argv=()) -> int:
     if "backbones" in phases:
         backbone_launches, backbone_b6 = check_backbones(device)
         ends["backbones"] = time.monotonic() - t0
+    if "distributed" in phases:
+        dist_launches = check_distributed(device)
+        ends["distributed"] = time.monotonic() - t0
     if "fit" in phases:
         # Last: a profile window loses its first kernels more the older
         # the process is (utils/profiling.py), and this phase takes
@@ -4153,6 +4677,13 @@ def main(argv=()) -> int:
                    for path, per_batch in paths.items()}
             for name, paths in backbone_launches.items()}
     extra["b6"]["backbones_new_shapes_ms"] = backbone_b6
+    for key in ("b1", "b3"):
+        extra[key]["distributed_launches_per_step_each_rank"] = \
+            dist_launches[key]
+    extra["b2"]["distributed_eval_launches_per_batch_each_rank"] = \
+        dist_launches["b2"]
+    extra["b1"]["distributed_eval_launches_per_batch_each_rank"] = \
+        dist_launches["b1_eval"]
     extra["b2"].update(largest_n_checked=b2_largest_n,
                        launches_reference_decode_every_candidate=sum(
                            decode_launches.values()))

@@ -393,19 +393,22 @@ def evaluate_model(detector, loader, config, max_images: int = None,
     one) — the hook behind ``evaluate --dump-detections``, which exports
     canonical COCO-results JSON for offline pycocotools cross-validation.
 
-    ``process_shard=(shard, num_shards)``: multi-process evaluation waits
-    for the port's distributed slice (ROADMAP A.7); more than one shard
-    raises.
+    ``process_shard=(shard, num_shards)``: multi-process evaluation, one
+    shard a rank (``evaluate`` passes ``(rank, world size)``).  Each rank
+    detects the samples ``i % num_shards == shard``; the per-image records
+    are all-gathered once at the end (``allgather_pyobjs``) and replayed
+    in global dataset order, so every rank returns the metrics of one
+    process over the whole set (ties on equal scores included, which
+    follow the order of ``add``), and ``detections_sink`` sees every
+    image, in that order, on every rank.
     """
     import dataclasses
 
     from retinanet_tpu_torch.data.pipeline import process_sample, select_canvas
+    from retinanet_tpu_torch.parallel.distributed import (allgather_pyobjs,
+                                                          shard_loader,
+                                                          world_size)
 
-    shard, num_shards = process_shard or (0, 1)
-    if num_shards > 1:
-        raise NotImplementedError(
-            f"process_shard={process_shard}: multi-process evaluation "
-            f"waits for the port's torch.distributed slice (ROADMAP A.7)")
     data_cfg = dataclasses.replace(config.data, augment_flip=False,
                                    augment_photometric=False)
     mean = np.asarray(data_cfg.mean, np.float32)
@@ -419,12 +422,19 @@ def evaluate_model(detector, loader, config, max_images: int = None,
         evaluator = COCOEvaluator(loader.num_classes)
     else:
         raise ValueError(f"unknown eval protocol: {protocol!r}")
+    shard, num_shards = process_shard or (0, 1)
+    if num_shards > 1 and num_shards != world_size():
+        raise ValueError(f"process_shard={process_shard} needs {num_shards} "
+                         f"ranks, the group has {world_size()}")
+    # Sharded runs defer add and sink: (global index, gt, det) records
+    # collect here and replay in global order after the all-gather.
+    records: list = []
 
-    # canvas (h, w) -> ([images], [scales], [gts])
+    # canvas (h, w) -> ([images], [scales], [global indices], [gts])
     pending: Dict[tuple, tuple] = {}
 
     def flush(canvas):
-        images, scales, gts = pending.pop(canvas, ([], [], []))
+        images, scales, idxs, gts = pending.pop(canvas, ([], [], [], []))
         if not images:
             return
         n = len(images)
@@ -433,23 +443,32 @@ def evaluate_model(detector, loader, config, max_images: int = None,
             scales.append(1.0)
         results = detector.detect(np.stack(images),
                                   scales=np.asarray(scales, np.float32))
-        for det, gt in zip(results[:n], gts):
+        for det, idx, gt in zip(results[:n], idxs, gts):
             if score_threshold is not None:
                 keep = det["scores"] >= score_threshold
                 det = {k: v[keep] for k, v in det.items()}
+            if num_shards > 1:
+                records.append((idx, gt, det))
+                continue
             if detections_sink is not None:
                 detections_sink(gt, det)
             evaluator.add(det, gt)
 
-    for i, sample in enumerate(loader):
+    for k, sample in enumerate(shard_loader(loader, shard, num_shards)):
+        # The global dataset index (a shard's k-th sample is the loader's
+        # shard + k·num_shards); max_images caps globally, so sharded and
+        # one-process runs see the same images.
+        i = shard + k * num_shards
         if max_images is not None and i >= max_images:
             break
         sample, canvas = select_canvas(sample, data_cfg)
         out = process_sample(sample, canvas, mean, std,
                              max_boxes=config.assign.max_boxes, flip=False)
-        images, scales, gts = pending.setdefault(canvas, ([], [], []))
+        images, scales, idxs, gts = pending.setdefault(
+            canvas, ([], [], [], []))
         images.append(out["image"])
         scales.append(float(out["scale"]))
+        idxs.append(i)
         gts.append({"boxes": np.asarray(sample["boxes"], np.float32),
                     "class_ids": np.asarray(sample["class_ids"]),
                     "iscrowd": sample.get("iscrowd"),
@@ -462,6 +481,13 @@ def evaluate_model(detector, loader, config, max_images: int = None,
             flush(canvas)
     for canvas in list(pending):
         flush(canvas)
+    if num_shards > 1:
+        merged = sorted((r for rank in allgather_pyobjs(records)
+                         for r in rank), key=lambda r: r[0])
+        for _, gt, det in merged:
+            if detections_sink is not None:
+                detections_sink(gt, det)
+            evaluator.add(det, gt)
     metrics = evaluator.summarize()
     if per_class:
         # Per-category diagnostic (COCO: mAP@[.5:.95]; VOC: VOC07 AP);

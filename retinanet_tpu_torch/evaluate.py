@@ -11,8 +11,12 @@ Usage::
         --from-export model.npz
 
 The flags are the JAX CLI's, ``--platform`` becoming ``--device``.
-``--data-parallel``, ``--spatial`` and a multi-process run raise, naming
-the ROADMAP item that brings them (``torch.distributed``, A.7).
+Under ``torchrun --nproc-per-node N`` each rank detects its shard of the
+dataset on its own card and every rank prints the metrics of the whole set
+(``evaluate_model(process_shard=)``).  ``--data-parallel`` splits each
+batch over the rank's devices: every visible card at one process, the
+rank's own card under several.  ``--spatial`` raises, naming the ROADMAP
+item that brings it (A.7, second part).
 """
 
 from __future__ import annotations
@@ -29,10 +33,11 @@ import torch
 from retinanet_tpu_torch.config import Config, _apply_dotted, parse_buckets
 from retinanet_tpu_torch.data.loaders.inferred import Inferred
 from retinanet_tpu_torch.eval_coco import evaluate_model
+from retinanet_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
-DISTRIBUTED = "ROADMAP A.7 (torch.distributed)"
+SPATIAL = "ROADMAP A.7, second part (--spatial)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,11 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="ModelConfig.fused_res4_strips (as --fused-res3-strips)")
     parser.add_argument(
         "--data-parallel", action="store_true",
-        help=f"shard eval batches over the local devices: waits for "
-             f"{DISTRIBUTED}")
+        help="split each eval batch over the local devices: every visible "
+             "card at one process, the rank's own card under torchrun "
+             "(the batch size must divide by their count)")
     parser.add_argument(
         "--spatial", type=int, default=1, metavar="S",
-        help=f"shard image height over S devices: waits for {DISTRIBUTED}")
+        help=f"shard image height over S devices: waits for {SPATIAL}")
     parser.add_argument(
         "--dump-detections", type=str, default=None, metavar="PATH",
         help="also write every detection in canonical COCO-results JSON "
@@ -123,17 +129,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise for each flag whose port has not landed, naming its item."""
-    if args.data_parallel or args.spatial > 1:
-        raise SystemExit(f"--data-parallel/--spatial wait for {DISTRIBUTED}")
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise SystemExit(f"multi-process evaluation waits for {DISTRIBUTED}")
+    if args.spatial > 1:
+        raise SystemExit(f"--spatial waits for {SPATIAL}")
+
+
+def local_devices(device: Union[str, torch.device]) -> list:
+    """The devices ``--data-parallel`` serves on: every visible card at one
+    process, else this rank's device alone."""
+    device = distributed.rank_device(device)
+    cards = torch.cuda.device_count()
+    if device.type == "cuda" and distributed.world_size() == 1 and cards > 1:
+        return [torch.device("cuda", i) for i in range(cards)]
+    return [device]
 
 
 def load_detector(config: Config, loader, step: Optional[int] = None,
                   average_last: Optional[int] = None,
-                  device: Union[str, torch.device] = "cuda"):
+                  device: Union[str, torch.device] = "cuda",
+                  devices: Optional[list] = None):
     """A ``Detector`` on the experiment's latest (or given) checkpoint,
     through :class:`~retinanet_tpu_torch.train.CheckpointStore` directly —
     not a Trainer, so serving inherits no training-only validation — and
@@ -141,7 +154,8 @@ def load_detector(config: Config, loader, step: Optional[int] = None,
 
     ``average_last=N`` serves the elementwise mean of the newest N
     checkpoints' parameters, in new tensors (checkpoint averaging).
-    ``loader`` gives the class names (and so the class count).
+    ``loader`` gives the class names (and so the class count); ``devices``
+    serves data-parallel (``infer.Detector``).
     """
     from retinanet_tpu_torch.infer import Detector
     from retinanet_tpu_torch.models.retinanet import RetinaNet
@@ -182,7 +196,7 @@ def load_detector(config: Config, loader, step: Optional[int] = None,
         for v in acc.values():
             v.div_(float(len(steps)))
         logger.info("serving the average of checkpoints %s", steps)
-        return Detector(config, acc, loader.class_names, device)
+        return Detector(config, acc, loader.class_names, device, devices)
     if step is not None:
         # Fail fast on a missing checkpoint, before building the model.
         path = os.path.join(store.checkpoint_dir, f"step_{step}")
@@ -196,7 +210,7 @@ def load_detector(config: Config, loader, step: Optional[int] = None,
             f"no checkpoints in {store.checkpoint_dir} — wrong "
             f"--experiment path, or the run never saved one")
     params = store.restore_params(template(), step)
-    return Detector(config, params, loader.class_names, device)
+    return Detector(config, params, loader.class_names, device, devices)
 
 
 def strict_json(metrics: dict) -> dict:
@@ -247,6 +261,17 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     config = build_config(args)
+    # Under a launcher every rank detects its shard of the dataset; the
+    # records are all-gathered, so every rank prints the same metrics.
+    distributed.initialize(args.device)
+    world = distributed.world_size()
+    process_shard = (distributed.rank(), world) if world > 1 else None
+    device = distributed.rank_device(args.device)
+    devices = None
+    if args.data_parallel:
+        devices = local_devices(device)
+        logger.info("data-parallel serving over %d device(s): %s",
+                    len(devices), ", ".join(map(str, devices)))
 
     # Evaluation mode: crowd annotations become ignore regions (COCO eval
     # protocol) rather than being dropped (the training behaviour).
@@ -258,7 +283,7 @@ def main(argv=None):
                              "holds exactly one parameter set")
         from retinanet_tpu_torch.export import load_exported_detector
         detector = load_exported_detector(args.from_export, config=config,
-                                          device=args.device)
+                                          device=device, devices=devices)
         if list(detector.class_names) != list(loader.class_names):
             # Order matters: class ids are positional.
             raise SystemExit(
@@ -267,7 +292,7 @@ def main(argv=None):
     elif args.experiment:
         detector = load_detector(config, loader, args.step,
                                  average_last=args.average_checkpoints,
-                                 device=args.device)
+                                 device=device, devices=devices)
     else:
         raise SystemExit("need --experiment (checkpoint dir) or "
                          "--from-export (serving artifact)")
@@ -299,8 +324,9 @@ def main(argv=None):
                              score_threshold=args.score_threshold,
                              detections_sink=sink,
                              protocol=args.protocol,
-                             per_class=args.per_class)
-    if args.dump_detections:
+                             per_class=args.per_class,
+                             process_shard=process_shard)
+    if args.dump_detections and distributed.is_lead():
         with open(args.dump_detections, "w") as f:
             json.dump(dump, f)
         logger.info("wrote %d detections to %s (COCO-results format)",

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -165,13 +165,16 @@ def init_params(config: Config, generator: torch.Generator,
 
 
 def load_exported_detector(path: str, config: Optional[Config] = None,
-                           device: Union[str, torch.device] = "cuda"):
+                           device: Union[str, torch.device] = "cuda",
+                           devices: Optional[Sequence] = None):
     """A ready ``infer.Detector`` from an export file, on the card unless
-    the caller passes another device.  ``config`` (optional) sets the
-    serving knobs (NMS thresholds, batch size, quantize, fused blocks);
-    backbone and classes always come from the export."""
+    the caller passes another device, or data-parallel over ``devices``.
+    ``config`` (optional) sets the serving knobs (NMS thresholds, batch
+    size, quantize, fused blocks); backbone and classes always come from
+    the export."""
     from retinanet_tpu_torch.infer import Detector  # infer imports this
-    return Detector.from_export(path, config=config, device=device)
+    return Detector.from_export(path, config=config, device=device,
+                                devices=devices)
 
 
 def main(argv=None):

@@ -1,19 +1,21 @@
 """Inference path (port of ``retinanet_tpu/infer.py``).
 
 ``make_inference_fn`` builds images → normalize → forward (compute dtype)
-→ ``fused_decode_nms``; ``Detector`` wraps it with weights, an explicit
-device and host-side numpy detections; ``benchmark`` times it on the card;
-``forward_gflops_per_image`` counts the model's forward FLOPs, the
-numerator of a serving MFU.
+→ ``fused_decode_nms``, on one device or data-parallel over several (the
+JAX package's ``mesh=`` serving); ``Detector`` wraps it with weights,
+explicit devices and host-side numpy detections; ``benchmark`` times it on
+the card; ``forward_gflops_per_image`` counts the model's forward FLOPs,
+the numerator of a serving MFU.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import logging
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,47 +33,90 @@ from retinanet_tpu_torch.ops.preprocess import maybe_normalize
 
 logger = logging.getLogger(__name__)
 
+Device = Union[str, torch.device]
 
-def make_inference_fn(model: RetinaNet, levels: Levels, config: Config
+
+def make_inference_fn(model: RetinaNet, levels: Levels, config: Config,
+                      devices: Optional[Sequence[Device]] = None
                       ) -> Callable[[Tensor], BoxesDecoded]:
-    """images [B,H,W,3] (float normalized, or uint8) on the model's device
-    → BoxesDecoded, with no host synchronisation inside."""
+    """images [B,H,W,3] (float normalized, or uint8) → BoxesDecoded, with no
+    host synchronisation inside.
+
+    One device (``devices`` None or one long): the images on the model's
+    device, the detections there.  Several (data-parallel serving, the
+    JAX package's ``mesh=``): the model on ``devices[0]`` and a copy of it
+    on each other device, made now; the batch (best left on the host)
+    splits into equal contiguous chunks, chunk i goes straight to device
+    i and runs there, and the detections come back to ``devices[0]`` in
+    batch order.  Decode and NMS are per image, so no device waits for
+    another.  The batch must divide by the device count."""
     nms_cfg = config.nms
     if nms_cfg.use_approx_top_k or nms_cfg.use_approx_global_top_k:
         logger.info("use_approx_top_k names a TPU unit; the port selects "
                     "candidates with exact top-k")
 
     @torch.inference_mode()
-    def infer(images: Tensor) -> BoxesDecoded:
+    def infer_on(replica: RetinaNet, images: Tensor) -> BoxesDecoded:
         images = maybe_normalize(images, config.data)
-        out = model(images)
+        out = replica(images)
         return fused_decode_nms(out["classifications"], out["regressions"],
                                 levels, tuple(images.shape[1:3]), nms_cfg)
+
+    if devices is None or len(devices) <= 1:
+        return lambda images: infer_on(model, images)
+    devices = [torch.device(d) for d in devices]
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+    cuda = any(d.type == "cuda" for d in devices)
+
+    @torch.inference_mode()
+    def infer(images: Tensor) -> BoxesDecoded:
+        if images.shape[0] % len(devices):
+            raise ValueError(f"data-parallel serving needs a batch divisible "
+                             f"by the {len(devices)} devices, got "
+                             f"{images.shape[0]}")
+        if images.device.type == "cpu" and cuda:
+            images = images.pin_memory()  # each chunk copies asynchronously
+        outs = [infer_on(replica, chunk.to(device, non_blocking=True))
+                for replica, chunk, device in
+                zip(replicas, images.chunk(len(devices)), devices)]
+        return BoxesDecoded(*(torch.cat([o[i].to(devices[0]) for o in outs])
+                              for i in range(len(BoxesDecoded._fields))))
 
     return infer
 
 
 class Detector:
-    """User-facing inference wrapper on one device: the card unless the
-    caller passes another."""
+    """User-facing inference wrapper on one device, the card unless the
+    caller passes another, or data-parallel over ``devices``
+    (``make_inference_fn``; ``config.data.batch_size`` must divide by
+    their count).  ``model`` is the replica on the first device."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, Tensor],
-                 class_names: List[str],
-                 device: Union[str, torch.device] = "cuda"):
+                 class_names: List[str], device: Device = "cuda",
+                 devices: Optional[Sequence[Device]] = None):
         self.config = config
         self.class_names = class_names
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        if config.data.batch_size % len(self.devices):
+            raise ValueError(
+                f"data-parallel serving needs batch_size divisible by the "
+                f"device count ({config.data.batch_size} % "
+                f"{len(self.devices)} != 0)")
         self.levels = build_levels(config.anchors)
         self.model = RetinaNet.from_config(
             config.model, num_anchors=self.levels.num_anchors,
             num_classes=len(class_names))
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
-        self._fn = make_inference_fn(self.model, self.levels, config)
+        self._fn = make_inference_fn(self.model, self.levels, config,
+                                     self.devices)
 
     @classmethod
     def from_export(cls, path: str, config: Optional[Config] = None,
-                    device: Union[str, torch.device] = "cuda") -> "Detector":
+                    device: Device = "cuda",
+                    devices: Optional[Sequence[Device]] = None
+                    ) -> "Detector":
         """Serve a JAX export file; backbone and classes come from it."""
         meta, state_dict, class_names, image_size = load_exported(path)
         if config is None:
@@ -81,12 +126,17 @@ class Detector:
         config = config.replace(model=dataclasses.replace(
             config.model, backbone=meta["backbone"],
             num_classes=len(class_names)))
-        return cls(config, state_dict, class_names, device)
+        return cls(config, state_dict, class_names, device, devices)
 
     def __call__(self, images: Union[np.ndarray, Tensor]) -> BoxesDecoded:
         """images: [B, H, W, 3] normalized float32 (or uint8) →
-        BoxesDecoded on the detector's device."""
-        return self._fn(torch.as_tensor(images).to(self.device))
+        BoxesDecoded on the detector's (first) device.  Over several
+        devices each chunk of the batch goes from where it lies straight
+        to its own device."""
+        images = torch.as_tensor(images)
+        if len(self.devices) == 1:
+            images = images.to(self.device)
+        return self._fn(images)
 
     def detect(self, images: Union[np.ndarray, Tensor],
                scales: Optional[np.ndarray] = None) -> List[Dict]:

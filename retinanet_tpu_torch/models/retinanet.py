@@ -79,7 +79,7 @@ def build_backbone(name: str, quantize: bool = False,
 class RetinaNet(nn.Module):
     """Full detector.  Construct via ``RetinaNet.from_config(cfg.model)``."""
 
-    def __init__(self, backbone: str = "resnet_50_dense",
+    def __init__(self, backbone: str = "resnet_50",
                  num_classes: int = 80, num_anchors: int = 9,
                  activation: str = "elu", dropout_rate: float = 0.2,
                  fpn_channels: int = 256,
@@ -160,13 +160,22 @@ class RetinaNet(nn.Module):
         }
 
 
-def l2_regularization(named_params: Iterable[Tuple[str, Tensor]],
-                      backbone: str, scale: float = 1e-4) -> Tensor:
-    """TF-parity L2 loss: ``scale · Σw² / 2`` over every conv ``kernel``
+def l2_scale(name: str, backbone: str, scale: float = 1e-4) -> float:
+    """The L2 weight of the parameter ``name``: 0 but for conv ``kernel``s
     (GroupNorm γ/β and biases are not regularized); kernels under
     ``backbone_net`` take 4e-5 for ``mobilenet_v2``, ``scale`` otherwise."""
-    backbone_scale = 4e-5 if backbone == "mobilenet_v2" else scale
-    return sum((backbone_scale if name.startswith("backbone_net.") else scale)
+    if name.rsplit(".", 1)[-1] != "kernel":
+        return 0.0
+    if name.startswith("backbone_net.") and backbone == "mobilenet_v2":
+        return 4e-5
+    return scale
+
+
+def l2_regularization(named_params: Iterable[Tuple[str, Tensor]],
+                      backbone: str, scale: float = 1e-4) -> Tensor:
+    """TF-parity L2 loss: ``l2_scale · Σw² / 2`` summed over every conv
+    ``kernel``; its gradient is ``l2_scale · w``."""
+    return sum(l2_scale(name, backbone, scale)
                * torch.sum(torch.square(value.float())) / 2
                for name, value in named_params
                if name.rsplit(".", 1)[-1] == "kernel")

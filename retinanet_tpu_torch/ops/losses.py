@@ -3,10 +3,10 @@
 Static shapes: full per-anchor maps plus a trainable-weight mask, so masked
 anchors add exactly zero to every sum.  The dice, jaccard, fixed-IoU and
 balanced-BCE terms reduce over the global flattened anchor axis of the whole
-batch, and every reduction goes through :func:`_global_sum`.  On one device
-that is a local sum; it is the one place a data-parallel step all-reduces
-(the JAX package's ``psum`` over ``axis_name``), so numerics match at any
-world size.
+batch, and every reduction goes through :func:`_global_sum`: a local sum,
+and with a ``group`` (the JAX package's ``axis_name``) its all-reduce over
+the group's ranks (``parallel.distributed.global_sum``), so each rank's
+loss is that of the global batch at any world size.
 
 Class losses: ``bce`` (sigmoid BCE), ``focal`` (α=0.25, γ=2, normalized by
 the foreground count), ``dice``, ``jaccard``, ``fixed_iou``,
@@ -22,20 +22,22 @@ import torch
 from torch import Tensor
 
 from retinanet_tpu_torch.config import LossConfig
+from retinanet_tpu_torch.parallel.distributed import global_sum
 
 _EPS = 1e-7
 
 
-def _global_sum(x: Tensor, dims: Optional[Sequence[int]] = None) -> Tensor:
-    """Sum over ``dims`` (all of them when None) of the global batch.  The
-    port's slices run on one device, so this is the local sum; the
-    data-parallel slice adds its all-reduce here."""
-    return x.sum() if dims is None else x.sum(dim=tuple(dims))
+def _global_sum(x: Tensor, group, dims: Optional[Sequence[int]] = None
+                ) -> Tensor:
+    """Sum over ``dims`` (all of them when None), then over the ranks of
+    ``group`` (none when None): the sum over the global batch."""
+    local = x.sum() if dims is None else x.sum(dim=tuple(dims))
+    return global_sum(local, group)
 
 
-def _leading_sum(x: Tensor) -> Tensor:
+def _leading_sum(x: Tensor, group) -> Tensor:
     """Per-class global sum: every axis but the last."""
-    return _global_sum(x, range(x.dim() - 1))
+    return _global_sum(x, group, range(x.dim() - 1))
 
 
 def sigmoid_bce_with_logits(labels: Tensor, logits: Tensor) -> Tensor:
@@ -55,29 +57,30 @@ def focal_sigmoid_bce_with_logits(labels: Tensor, logits: Tensor,
     return -alpha_t * (1 - prob_true) ** focus * torch.log(prob_true + eps)
 
 
-def _masked_class_sums(labels: Tensor, probs: Tensor, weights: Tensor):
+def _masked_class_sums(labels: Tensor, probs: Tensor, weights: Tensor,
+                       group):
     """Per-class global sums of (labels·probs, labels, probs) over weighted
     anchors; ``weights`` [...] against ``labels``/``probs`` [..., C]."""
     w = weights[..., None]
-    return (_leading_sum(labels * probs * w), _leading_sum(labels * w),
-            _leading_sum(probs * w))
+    return (_leading_sum(labels * probs * w, group),
+            _leading_sum(labels * w, group), _leading_sum(probs * w, group))
 
 
 def dice_loss_masked(labels: Tensor, logits: Tensor, weights: Tensor,
-                     smooth: float = 0.0) -> Tensor:
+                     smooth: float = 0.0, group=None) -> Tensor:
     """Per-class dice over all weighted anchors, mean over classes; the
     denominator is guarded with a tiny eps."""
     inter, lab_sum, prob_sum = _masked_class_sums(
-        labels, torch.sigmoid(logits), weights)
+        labels, torch.sigmoid(logits), weights, group)
     union = lab_sum + prob_sum
     coef = (2 * inter + smooth) / torch.clamp(union + smooth, min=_EPS)
     return torch.mean(1 - coef)
 
 
 def jaccard_loss_masked(labels: Tensor, logits: Tensor, weights: Tensor,
-                        smooth: float = 1.0) -> Tensor:
+                        smooth: float = 1.0, group=None) -> Tensor:
     inter, lab_sum, prob_sum = _masked_class_sums(
-        labels, torch.sigmoid(logits), weights)
+        labels, torch.sigmoid(logits), weights, group)
     union = lab_sum + prob_sum
     jaccard = (inter + smooth) / torch.clamp(union - inter + smooth,
                                              min=_EPS)
@@ -85,30 +88,32 @@ def jaccard_loss_masked(labels: Tensor, logits: Tensor, weights: Tensor,
 
 
 def fixed_iou_loss_masked(labels: Tensor, logits: Tensor, weights: Tensor,
-                          smooth: float = 1e-7) -> Tensor:
+                          smooth: float = 1e-7, group=None) -> Tensor:
     """The union counts false positives as (1 − labels)·probs."""
     probs = torch.sigmoid(logits)
     w = weights[..., None]
-    inter = _leading_sum(labels * probs * w)
-    union = _leading_sum(labels * w) + _leading_sum((1 - labels) * probs * w)
+    inter = _leading_sum(labels * probs * w, group)
+    union = (_leading_sum(labels * w, group)
+             + _leading_sum((1 - labels) * probs * w, group))
     iou = (inter + smooth) / torch.clamp(union + smooth, min=_EPS)
     return torch.mean(1 - iou)
 
 
 def balanced_bce_masked(labels: Tensor, logits: Tensor,
-                        weights: Tensor) -> Tensor:
+                        weights: Tensor, group=None) -> Tensor:
     """Per-class pos/neg frequency balancing over the global anchor axis,
     then the mean over weighted entries."""
     w = weights[..., None]
-    num_pos = _leading_sum(labels * w)
-    num_neg = _leading_sum((1 - labels) * w)
+    num_pos = _leading_sum(labels * w, group)
+    num_neg = _leading_sum((1 - labels) * w, group)
     total = torch.clamp(num_pos + num_neg, min=1.0)
     weight_pos = num_neg / total
     weight_neg = num_pos / total
     per_entry_w = torch.where(labels == 1, weight_pos, weight_neg)
     bce = sigmoid_bce_with_logits(labels, logits) * per_entry_w * w
-    denom = torch.clamp(_global_sum(w * torch.ones_like(labels)), min=1.0)
-    return _global_sum(bce) / denom
+    denom = torch.clamp(_global_sum(w * torch.ones_like(labels), group),
+                        min=1.0)
+    return _global_sum(bce, group) / denom
 
 
 def huber_loss(labels: Tensor, predictions: Tensor,
@@ -121,45 +126,47 @@ def huber_loss(labels: Tensor, predictions: Tensor,
 
 
 def regression_loss(labels: Tensor, logits: Tensor, fg_mask: Tensor,
-                    delta: float = 1.0) -> Tensor:
+                    delta: float = 1.0, group=None) -> Tensor:
     """Huber on foreground anchors, divided by the number of nonzero
     weight elements of the broadcast [..., 4] loss."""
     w = fg_mask.to(labels.dtype)[..., None]
     per_elem = huber_loss(labels, logits, delta) * w
-    num_nonzero = _global_sum(w * torch.ones_like(labels))
-    return _global_sum(per_elem) / torch.clamp(num_nonzero, min=1.0)
+    num_nonzero = _global_sum(w * torch.ones_like(labels), group)
+    return _global_sum(per_elem, group) / torch.clamp(num_nonzero, min=1.0)
 
 
 def classification_loss(labels: Tensor, logits: Tensor, weights: Tensor,
-                        fg_mask: Tensor, cfg: LossConfig = LossConfig()
-                        ) -> Tensor:
+                        fg_mask: Tensor, cfg: LossConfig = LossConfig(),
+                        group=None) -> Tensor:
     """Sum of the configured class-loss terms over weighted anchors:
     ``labels``/``logits`` [..., C], ``weights`` the trainable mask [...],
     ``fg_mask`` the foreground anchors [...] (focal's normalizer)."""
     total = torch.zeros((), dtype=torch.float32, device=logits.device)
     w = weights.to(logits.dtype)
     entry_count = torch.clamp(
-        _global_sum(w[..., None] * torch.ones_like(labels)), min=1.0)
+        _global_sum(w[..., None] * torch.ones_like(labels), group), min=1.0)
     for name in cfg.class_losses:
         if name == "bce":
             bce = sigmoid_bce_with_logits(labels, logits) * w[..., None]
-            total = total + _global_sum(bce) / entry_count
+            total = total + _global_sum(bce, group) / entry_count
         elif name == "focal":
             focal = focal_sigmoid_bce_with_logits(
                 labels, logits, focus=cfg.focal_gamma,
                 alpha=cfg.focal_alpha) * w[..., None]
-            num_fg = _global_sum(fg_mask.to(torch.float32))
-            total = total + _global_sum(focal) / torch.clamp(num_fg, min=1.0)
+            num_fg = _global_sum(fg_mask.to(torch.float32), group)
+            total = total + _global_sum(focal, group) / torch.clamp(
+                num_fg, min=1.0)
         elif name == "dice":
-            total = total + dice_loss_masked(labels, logits, w,
-                                             smooth=cfg.dice_smooth)
+            total = total + dice_loss_masked(
+                labels, logits, w, smooth=cfg.dice_smooth, group=group)
         elif name == "jaccard":
-            total = total + jaccard_loss_masked(labels, logits, w,
-                                                smooth=cfg.jaccard_smooth)
+            total = total + jaccard_loss_masked(
+                labels, logits, w, smooth=cfg.jaccard_smooth, group=group)
         elif name == "fixed_iou":
-            total = total + fixed_iou_loss_masked(labels, logits, w)
+            total = total + fixed_iou_loss_masked(labels, logits, w,
+                                                  group=group)
         elif name == "balanced_bce":
-            total = total + balanced_bce_masked(labels, logits, w)
+            total = total + balanced_bce_masked(labels, logits, w, group)
         else:
             raise ValueError(f"unknown classification loss: {name}")
     return total
@@ -167,13 +174,15 @@ def classification_loss(labels: Tensor, logits: Tensor, weights: Tensor,
 
 def detection_loss(class_targets: Tensor, class_logits: Tensor,
                    regression_targets: Tensor, regression_logits: Tensor,
-                   trainable_mask: Tensor, cfg: LossConfig = LossConfig()
-                   ) -> Tuple[Tensor, Tensor]:
-    """(class_loss, regression_loss).  Foreground anchors are those whose
-    target class map has a value > 0.5 and that are trainable."""
+                   trainable_mask: Tensor, cfg: LossConfig = LossConfig(),
+                   group=None) -> Tuple[Tensor, Tensor]:
+    """(class_loss, regression_loss) of the global batch: this rank's
+    anchors, the sums over ``group``'s ranks (none when None).  Foreground
+    anchors are those whose target class map has a value > 0.5 and that
+    are trainable."""
     fg_mask = (torch.amax(class_targets, dim=-1) > 0.5) & trainable_mask
     class_loss = classification_loss(class_targets, class_logits,
-                                     trainable_mask, fg_mask, cfg)
+                                     trainable_mask, fg_mask, cfg, group)
     regr_loss = regression_loss(regression_targets, regression_logits,
-                                fg_mask, delta=cfg.huber_delta)
+                                fg_mask, delta=cfg.huber_delta, group=group)
     return class_loss, regr_loss

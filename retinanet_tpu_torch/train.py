@@ -20,8 +20,13 @@ So a checkpoint copies every tensor to the host before the next step runs
 and writes the files on a background thread, and a restore copies into
 the live tensors.
 
-``Trainer`` runs one process on one device: the JAX package's meshes
-(``--spatial``, several devices or processes) wait for ROADMAP A.7.
+Several ranks (``torchrun``, one device each, ``parallel/distributed.py``)
+train one model on the global batch: ``make_train_step(group=)`` sums the
+loss's statistics over the ranks (``ops/losses.py``) and the gradients in
+one flat bucket, and ``Trainer`` feeds each rank its shard of the dataset,
+writes metrics and checkpoints on the lead rank only, and restores every
+rank from the shared directory.  ``--spatial`` (image height over
+devices) waits for ROADMAP A.7's second part.
 """
 
 from __future__ import annotations
@@ -44,23 +49,29 @@ from torch import Tensor
 from retinanet_tpu_torch.config import Config, TrainConfig, parse_args
 from retinanet_tpu_torch.data.loaders.inferred import Inferred
 from retinanet_tpu_torch.data.pipeline import Batch, build_pipeline
-from retinanet_tpu_torch.models.layers import use_group_norm_kernel
-from retinanet_tpu_torch.models.retinanet import RetinaNet, l2_regularization
+from retinanet_tpu_torch.models.layers import (DropoutKeys,
+                                               use_group_norm_kernel)
+from retinanet_tpu_torch.models.retinanet import (RetinaNet, l2_regularization,
+                                                  l2_scale)
 from retinanet_tpu_torch.ops import assign
 from retinanet_tpu_torch.ops import boxes as box_ops
 from retinanet_tpu_torch.ops.anchors import (Levels, build_levels,
                                              flat_anchor_maps)
 from retinanet_tpu_torch.ops.losses import detection_loss
 from retinanet_tpu_torch.ops.preprocess import maybe_normalize
+from retinanet_tpu_torch.parallel import distributed
 from retinanet_tpu_torch.utils.pytree import flatten_levels
 from retinanet_tpu_torch.utils.summaries import (MetricsWriter,
                                                  prob_histograms, to_host)
 
 logger = logging.getLogger(__name__)
 
-DISTRIBUTED = "ROADMAP A.7 (torch.distributed)"
+SPATIAL = "ROADMAP A.7, second part (--spatial)"
 Schedule = Callable[[int], float]
 _LOSS_KEYS = ("total_loss", "class_loss", "regr_loss", "regularization_loss")
+# The diagnostics' sums, summed over the ranks before the ratios are taken.
+_SUMMED_KEYS = ("num_fg", "_class_inter", "_class_union", "_regr_iou_sum",
+                "_regr_iou_w", "prob_fg_hist", "prob_bg_hist")
 
 
 @dataclasses.dataclass
@@ -255,7 +266,7 @@ def make_classmap_fn(model: RetinaNet, levels: Levels, config: Config):
 
 
 def make_train_step(model: RetinaNet, levels: Levels, config: Config,
-                    with_metrics: bool = True):
+                    with_metrics: bool = True, group=None):
     """Build ``step_fn(state, images, boxes, class_ids, box_mask,
     generator) -> (state, metrics)`` for a model on its device.
 
@@ -273,6 +284,20 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
     scalars; the diagnostics stay full-batch sums.  Metrics are device
     tensors: the step does not synchronise with the host unless clipping
     decides on the gradient norm.
+
+    ``group`` (a ``torch.distributed`` group; the counterpart of the JAX
+    package's ``make_shard_map_train_step``): the batch is this rank's
+    slice of the global batch, and the step is the one-process step on
+    the global batch.  The losses' sums run over the ranks
+    (``detection_loss(group=)``); the data loss's parameter gradients and
+    the diagnostics' sums are summed over the ranks once a step, in one
+    flat bucket; the L2 term's gradient is added once, after.  So every
+    metric is global, the clipping decision is taken on the summed
+    gradient and the parameters stay bitwise equal across ranks.  With
+    ``grad_accum = k``, micro-batch j is the union of every rank's j-th
+    chunk.  Each rank draws the dropout masks of its own slice: rank 0
+    from ``generator`` as one process does, rank r from a generator
+    seeded by the same draw folded with r.
     """
     if config.model.quantize != "none":
         raise ValueError(
@@ -282,6 +307,19 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
     tx = build_optimizer(config.train)
     accum = max(1, config.train.grad_accum)
     num_classes = model.num_classes
+    rank = 0 if group is None else group.rank()
+    decay = [l2_scale(name, config.model.backbone, config.loss.weight_decay)
+             for name, _ in model.named_parameters()]
+
+    def dropout_stream(generator: Optional[torch.Generator]
+                       ) -> Optional[torch.Generator]:
+        """This rank's dropout generator for one forward.  Every rank takes
+        one draw from ``generator`` a forward, so the streams stay in
+        step."""
+        if generator is None or rank == 0 or not model.dropout_sites:
+            return generator
+        return DropoutKeys.draw(generator).generator(rank,
+                                                     torch.device("cpu"))
 
     def micro_fn(params: List[Tensor], images: Tensor, boxes: Tensor,
                  class_ids: Tensor, box_mask: Tensor,
@@ -294,20 +332,14 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
                 config.assign)
             ct, rt, tm = (flatten_levels(cls_t), flatten_levels(regr_t),
                           flatten_levels(masks))
-        out = model(images, training=True, generator=generator)
+        out = model(images, training=True, generator=dropout_stream(generator))
         cl = flatten_levels(out["classifications"])
         rg = flatten_levels(out["regressions"])
         class_loss, regr_loss = detection_loss(ct, cl, rt, rg, tm,
-                                               config.loss)
-        reg_loss = l2_regularization(model.named_parameters(),
-                                     config.model.backbone,
-                                     config.loss.weight_decay)
-        total = class_loss + regr_loss + reg_loss
-        grads = torch.autograd.grad(total, params)
-        sums = {"total_loss": total.detach(),
-                "class_loss": class_loss.detach(),
-                "regr_loss": regr_loss.detach(),
-                "regularization_loss": reg_loss.detach()}
+                                               config.loss, group)
+        grads = torch.autograd.grad(class_loss + regr_loss, params)
+        sums = {"class_loss": class_loss.detach(),
+                "regr_loss": regr_loss.detach()}
         if with_metrics:
             with torch.no_grad():
                 cl, rg = cl.detach(), rg.detach()
@@ -345,20 +377,38 @@ def make_train_step(model: RetinaNet, levels: Levels, config: Config,
             else:
                 grads = [a + c for a, c in zip(grads, g)]
                 sums = {k: sums[k] + s[k] for k in sums}
-        if accum > 1:
-            grads = [g / accum for g in grads]
-            sums = {k: (v / accum if k in _LOSS_KEYS else v)
-                    for k, v in sums.items()}
-
-        grad_norm = global_norm(grads)
-        learning_rate = tx.schedule(state.step)
         with torch.no_grad():
+            if group is not None:
+                summed = [k for k in _SUMMED_KEYS if k in sums]
+                reduced = distributed.all_reduce_sum(
+                    grads + [sums[k].to(torch.float32) for k in summed],
+                    group)
+                grads = reduced[:len(grads)]
+                sums.update({k: v.to(sums[k].dtype) for k, v in
+                             zip(summed, reduced[len(grads):])})
+            if accum > 1:
+                grads = [g / accum for g in grads]
+                sums = {k: (v / accum if k in _LOSS_KEYS else v)
+                        for k, v in sums.items()}
+            reg_loss = l2_regularization(state.params.items(),
+                                         config.model.backbone,
+                                         config.loss.weight_decay)
+            for g, p, scale in zip(grads, params, decay):
+                if scale:
+                    g.add_(p, alpha=scale)
+
+            grad_norm = global_norm(grads)
+            learning_rate = tx.schedule(state.step)
             for p, u in zip(params, tx.update(grads, state.opt_state)):
                 p.add_(u)
 
-        metrics = {k: sums[k] for k in _LOSS_KEYS}
-        metrics.update({"grad_norm": grad_norm,
-                        "learning_rate": torch.tensor(learning_rate)})
+        metrics = {"total_loss": sums["class_loss"] + sums["regr_loss"]
+                   + reg_loss,
+                   "class_loss": sums["class_loss"],
+                   "regr_loss": sums["regr_loss"],
+                   "regularization_loss": reg_loss,
+                   "grad_norm": grad_norm,
+                   "learning_rate": torch.tensor(learning_rate)}
         if with_metrics:
             metrics.update({
                 "num_fg": sums["num_fg"],
@@ -443,11 +493,18 @@ class CheckpointStore:
     thread into a directory whose name holds ``tmp`` and renames it to
     ``step_N`` when complete, so ``_finalized_steps`` never lists a
     half-written step.  ``wait_for_checkpoints`` joins the write.
+
+    Under several ranks the experiment directory is shared: only the lead
+    (``is_lead``) writes and prunes, and every rank restores.  The store
+    holds no collective: the Trainer meets its ranks at a barrier after the
+    lead's write is joined, so that no rank reads a step before it is whole.
     """
 
-    def __init__(self, experiment: str, keep_checkpoints: int = 5):
+    def __init__(self, experiment: str, keep_checkpoints: int = 5,
+                 is_lead: bool = True):
         self.experiment = experiment
         self.keep_checkpoints = keep_checkpoints
+        self.is_lead = is_lead
         self._writer: Optional[threading.Thread] = None
         self._write_error: Optional[BaseException] = None
         self._saved = False
@@ -464,8 +521,11 @@ class CheckpointStore:
         ``step_N`` directories, always retaining the newest
         ``keep_checkpoints`` of them — so even with ``keep_checkpoints=1`` a
         crash or a failed write never leaves zero restorable checkpoints.
+        A rank other than the lead writes nothing.
         """
         self._join()
+        if not self.is_lead:
+            return
         step = int(state.step)
         host = {"params": {"step": step,
                            "params": _host_copy(dict(state.params))},
@@ -552,7 +612,9 @@ class CheckpointStore:
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
         """Copy the latest (or the given) checkpoint into ``state``'s live
-        tensors, so the model and the state keep sharing storage."""
+        tensors, so the model and the state keep sharing storage.  A write
+        of this store still in flight is joined first."""
+        self._join()
         explicit = step is not None
         step = step if step is not None else self.latest_checkpoint_step()
         if step is None:
@@ -586,7 +648,9 @@ class CheckpointStore:
         tensors, checked against ``params`` by name and shape; ``params``
         itself when there is no checkpoint.  The optimizer's file is never
         read, so how the model was optimized (``--grad-clip-norm``, the
-        optimizer) does not matter to serving."""
+        optimizer) does not matter to serving.  A write of this store still
+        in flight is joined first."""
+        self._join()
         step = step if step is not None else self.latest_checkpoint_step()
         if step is None:
             return dict(params)
@@ -605,29 +669,21 @@ class CheckpointStore:
         return restored
 
 
-def _world_size() -> int:
-    """Processes in this run: the ``torch.distributed`` group's size, or
-    the launcher's ``WORLD_SIZE``."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def refuse_distributed(config: Config) -> None:
-    """Raise ``NotImplementedError`` for every run the JAX package spreads
-    over a mesh: ``spatial > 1``, ``num_devices > 1``, several processes."""
+    """Raise ``NotImplementedError`` for the runs the port does not spread:
+    ``spatial > 1`` (ROADMAP A.7, second part), and a ``num_devices`` other
+    than the number of ranks (one process over several devices; a rank
+    drives one device, so ``torchrun --nproc-per-node N`` gives N)."""
     if config.parallel.spatial > 1:
         raise NotImplementedError(
             f"spatial={config.parallel.spatial} (image height over a "
-            f"device mesh) waits for {DISTRIBUTED}")
-    if (config.parallel.num_devices or 1) > 1:
+            f"device mesh) waits for {SPATIAL}")
+    devices, world = config.parallel.num_devices, distributed.world_size()
+    if devices is not None and devices != world:
         raise NotImplementedError(
-            f"num_devices={config.parallel.num_devices} waits for "
-            f"{DISTRIBUTED}; the port trains on one device")
-    if _world_size() > 1:
-        raise NotImplementedError(
-            f"a {_world_size()}-process run waits for {DISTRIBUTED}")
+            f"num_devices={devices} in a run of {world} process(es): a "
+            f"process drives one device (ROADMAP A.7), so launch N "
+            f"processes with `torchrun --nproc-per-node N`")
 
 
 class _Staged:
@@ -697,33 +753,68 @@ class HostToDevice:
 
 class Trainer:
     """Epoch loop + checkpoints + metrics (reference ``train.py:246-277``)
-    on one device: the card unless the caller passes another."""
+    on this rank's device: the card unless the caller passes another.
+
+    Under several ranks (``parallel.distributed.initialize``, which the
+    Trainer calls for a launcher's environment if ``train.main`` did not)
+    ``config.data.batch_size`` is the global batch: each rank feeds
+    global/world images a step from its shard of the dataset
+    (``shard_loader``), with pipeline seed ``train.seed + rank`` and the
+    canvas schedule every rank shares (``scheduled_canvases``); every rank
+    takes the same number of steps an epoch, set from the global dataset
+    length; the initial state is broadcast from rank 0; metrics, image
+    summaries and checkpoint writes are the lead's alone.
+    """
 
     def __init__(self, config: Config, loader=None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config
+        distributed.initialize(device)
         refuse_distributed(config)
-        if config.train.grad_accum > 1 and (
-                config.data.batch_size % config.train.grad_accum):
+        world, rank = distributed.world_size(), distributed.rank()
+        self.is_lead, self.group = rank == 0, distributed.group()
+        if config.data.batch_size % world:
             raise ValueError(
-                f"batch {config.data.batch_size} not divisible by "
+                f"global batch {config.data.batch_size} not divisible by "
+                f"{world} processes")
+        local_data = dataclasses.replace(
+            config.data, batch_size=config.data.batch_size // world)
+        if config.train.grad_accum > 1 and (
+                local_data.batch_size % config.train.grad_accum):
+            raise ValueError(
+                f"batch {local_data.batch_size} (a rank's) not divisible by "
                 f"grad_accum={config.train.grad_accum}")
         if loader is None:
             loader = Inferred(config.data.dataset[0],
                               list(config.data.dataset[1:]))
         self.loader = loader
-        self.device = torch.device(device)
+        self.device = distributed.rank_device(device)
         self.levels = build_levels(config.anchors)
         self.model = RetinaNet.from_config(
             config.model, num_anchors=self.levels.num_anchors,
             num_classes=loader.num_classes).to(self.device)
+        # Shards differ by at most one sample and the pipeline drops a short
+        # last batch, so ranks could differ by a batch an epoch and the
+        # longer one would wait in a collective forever: every rank takes
+        # the smallest shard's batches, from the GLOBAL dataset length.
+        self._sync_steps_per_epoch = None
+        if world > 1:
+            try:
+                self._sync_steps_per_epoch = (
+                    len(loader) // world // local_data.batch_size)
+            except TypeError:  # an unsized loader: set steps_per_epoch
+                pass
         self.pipeline = build_pipeline(
-            loader, config.data, max_boxes=config.assign.max_boxes,
-            training=True, seed=config.train.seed)
+            distributed.shard_loader(loader, rank, world), local_data,
+            max_boxes=config.assign.max_boxes, training=True,
+            seed=config.train.seed + rank, scheduled_canvases=world > 1,
+            schedule_seed=config.train.seed)
         self.transfer = HostToDevice(self.device)
-        self.writer = MetricsWriter(config.train.experiment)
+        self.writer = (MetricsWriter(config.train.experiment)
+                       if self.is_lead else None)
         self.checkpoints = CheckpointStore(config.train.experiment,
-                                           config.train.keep_checkpoints)
+                                           config.train.keep_checkpoints,
+                                           is_lead=self.is_lead)
         self._infer_fn = None
 
     # -- checkpointing (delegates to CheckpointStore) ------------------------
@@ -735,7 +826,10 @@ class Trainer:
         self.checkpoints.save(state)
 
     def wait_for_checkpoints(self):
+        """Join this rank's write, then meet every rank: past it, the lead's
+        checkpoints are whole and pruned for every rank to read."""
         self.checkpoints.wait_for_checkpoints()
+        distributed.barrier()
 
     def checkpoint_steps(self) -> list:
         return self.checkpoints.checkpoint_steps()
@@ -790,6 +884,8 @@ class Trainer:
         names = self.loader.class_names
 
         def to_tb(tag, rgb):
+            if self.writer is None:
+                return
             ok, png = cv2.imencode(".png", (rgb[..., ::-1]))
             if ok:
                 self.writer.add_image_png(tag, png.tobytes(),
@@ -840,6 +936,7 @@ class Trainer:
         from retinanet_tpu_torch.export import init_params
 
         cfg = self.config
+        self.wait_for_checkpoints()  # every rank reads whole checkpoints
         params = init_params(cfg, torch.Generator().manual_seed(
             cfg.train.seed), self.loader.num_classes)
         if cfg.train.init_backbone and self.latest_checkpoint_step() is None:
@@ -857,8 +954,14 @@ class Trainer:
             else:
                 logger.info("init backbone from %s (exact npz restore)",
                             cfg.train.init_backbone)
-        state = create_train_state(self.model, cfg, params)
-        return self.restore_checkpoint(state)
+        state = self.restore_checkpoint(
+            create_train_state(self.model, cfg, params))
+        if self.group is not None:
+            distributed.broadcast_(
+                list(state.params.values())
+                + [t for v in state.opt_state.values()
+                   if isinstance(v, list) for t in v], group=self.group)
+        return state
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -870,15 +973,19 @@ class Trainer:
         epochs = epochs if epochs is not None else cfg.train.epochs
         steps_per_epoch = (steps_per_epoch if steps_per_epoch is not None
                            else cfg.train.steps_per_epoch)
+        if steps_per_epoch is None:
+            steps_per_epoch = self._sync_steps_per_epoch
+        elif self._sync_steps_per_epoch is not None:
+            steps_per_epoch = min(steps_per_epoch, self._sync_steps_per_epoch)
         state = self._initial_state()
         py_step = int(state.step)
 
         # Two variants: the hot-path step skips the diagnostic full-tensor
         # reductions; the full step runs only on logged steps.
         step_light = make_train_step(self.model, self.levels, cfg,
-                                     with_metrics=False)
+                                     with_metrics=False, group=self.group)
         step_full = make_train_step(self.model, self.levels, cfg,
-                                    with_metrics=True)
+                                    with_metrics=True, group=self.group)
         # The steps' dropout seeds, drawn on the host (no synchronisation).
         step_gen = torch.Generator().manual_seed(cfg.train.seed + 1)
         t_last = time.time()
@@ -886,10 +993,10 @@ class Trainer:
         # logged step (step 1, which also pays the warm-up) divides by 1,
         # not log_every, so metrics.jsonl never starts with a made-up rate
         # Optional torch.profiler capture of N steps (train.profile_steps /
-        # --profile N), from the third step of this run on, past the first
-        # call of each step variant.
+        # --profile N) on the lead, from the third step of this run on, past
+        # the first call of each step variant.
         profile_from = (py_step + 3 if cfg.train.profile_steps > 0
-                        else None)
+                        and self.is_lead else None)
         profile_dir = os.path.join(cfg.train.experiment, "profile")
         profiler = None
         for epoch in range(epochs):
@@ -921,7 +1028,7 @@ class Trainer:
                     _stop_profiler(profiler, profile_dir, profile_from, step)
                     profiler, profile_from = None, None
 
-                if will_log:
+                if will_log and self.is_lead:
                     metrics = to_host(metrics)
                     now = time.time()
                     metrics["images_per_sec"] = (
@@ -938,7 +1045,7 @@ class Trainer:
                         float(metrics["regularization_loss"]))
                 if step % cfg.train.checkpoint_every == 0:
                     self.save_checkpoint(state)
-                    if cfg.train.image_summaries:
+                    if cfg.train.image_summaries and self.is_lead:
                         self.write_image_summaries(state, batch)
         if profiler is not None:  # run ended inside the requested window
             self._sync()
@@ -1107,12 +1214,15 @@ def benchmark_train_pipeline(config: Config, batch_size: int = 32,
 def main(argv=None):
     """``python -m retinanet_tpu_torch.train``: the JAX package's flags
     (``config.build_parser``), on the card unless ``--device`` says
-    otherwise."""
+    otherwise; under ``torchrun --nproc-per-node N`` each of N ranks on its
+    own card, ``--batch-size`` the global batch."""
     from retinanet_tpu_torch.utils.cli import log_args
 
     logging.basicConfig(level=logging.INFO)
     config, device = parse_args(argv)
-    log_args(config)
+    distributed.initialize(device)
+    if distributed.is_lead():
+        log_args(config)
     trainer = Trainer(config, device=device)
     return trainer.fit()
 

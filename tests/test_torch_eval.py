@@ -204,7 +204,9 @@ def test_evaluate_model_equals_jax(detector, buckets, protocol):
 
 
 def test_evaluate_model_refuses_shards(detector):
-    with pytest.raises(NotImplementedError, match="A.7"):
+    """Shards without their ranks: one process holding shard 0 of 2 would
+    score half the set as if it were all of it."""
+    with pytest.raises(ValueError, match="2 ranks"):
         eval_coco.evaluate_model(detector, _Mixed(Shapes), detector.config,
                                  process_shard=(0, 2))
 

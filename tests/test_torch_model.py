@@ -8,6 +8,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from flax import traverse_util
 
 from retinanet_tpu.export import export_model
 from retinanet_tpu.models.retinanet import RetinaNet as JaxRetinaNet
@@ -103,7 +104,7 @@ def test_export_roundtrip_into_port(flat, tmp_path, dtype):
             expect = expect.astype(ml_dtypes.bfloat16).astype(np.float32)
         assert state[k].dtype == torch.float32
         np.testing.assert_array_equal(state[k].numpy(), expect, err_msg=k)
-    model = RetinaNet(num_classes=4)
+    model = RetinaNet(backbone="resnet_50_dense", num_classes=4)
     model.load_state_dict(state)
 
 
@@ -125,3 +126,21 @@ def test_unported_backbones_raise():
         assert not stem.quantize, name
     model = RetinaNet.from_config(Config().model)
     assert model.backbone == "resnet_50"
+
+
+def test_bare_retinanet_is_jax_bare_retinanet():
+    """``RetinaNet()`` with every argument at its default builds the model
+    that JAX's ``RetinaNet()`` builds (ResNeXt-50, 80 classes, 9 anchors):
+    the same parameter names and shapes across the weight bridge
+    (ROADMAP C.14)."""
+    jmodel = JaxRetinaNet()
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                            training=False))["params"]
+    flat = {"/".join(k): np.zeros(v.shape, np.float32) for k, v in
+            traverse_util.flatten_dict(shapes).items()}
+    want = {k: tuple(v.shape) for k, v in params_from_flax(flat).items()}
+    with torch.device("meta"):
+        model = RetinaNet()
+    assert model.backbone == jmodel.backbone == "resnet_50"
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want

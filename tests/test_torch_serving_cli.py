@@ -110,16 +110,22 @@ def test_evaluate_cli_refuses_reordered_classes(artifacts, tmp_path):
     (["--average-checkpoints", "2"], "A.4"), (["--data-parallel"], "A.7"),
     (["--spatial", "2"], "A.7")])
 def test_evaluate_unported_flags_raise(artifacts, flags, item, capsys):
-    """The A.7 flags raise naming A.7.  The checkpoint flags, ported in
-    A.4, serve the experiment (``exp`` standing for it) and print the
-    metrics of the export of the same weights."""
+    """``--spatial`` (A.7's second part) raises naming A.7.  The flags
+    ported since print the metrics of the export without them:
+    ``--data-parallel`` (A.7's first part) on the CPU's one device, and
+    the checkpoint flags (A.4) serving the experiment (``exp`` standing
+    for it) of the same weights."""
     dataset = ["--dataset", "shapes", "unused", "2", "64", "--device", "cpu"]
-    if item == "A.7":
+    if "--spatial" in flags:
         with pytest.raises(SystemExit, match=item):
             evaluate.main([*dataset, "--from-export", artifacts[0], *flags])
         return
     evaluate.main([*dataset, "--from-export", artifacts[0]])
     want = capsys.readouterr().out
+    if "--data-parallel" in flags:
+        evaluate.main([*dataset, "--from-export", artifacts[0], *flags])
+        assert capsys.readouterr().out == want
+        return
     flags = [artifacts[2] if f == "exp" else f for f in flags]
     if "--experiment" not in flags:
         flags = ["--experiment", artifacts[2], *flags]

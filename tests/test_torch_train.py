@@ -145,7 +145,8 @@ def test_light_step_and_l2_match_jax(jax_run):
                         "regularization_loss", "grad_norm", "learning_rate"}
     np.testing.assert_allclose(got["total_loss"], want["total_loss"],
                                rtol=1e-4)
-    model = RetinaNet(num_classes=CLASSES, dtype=torch.float32)
+    model = RetinaNet(backbone="resnet_50_dense", num_classes=CLASSES,
+                      dtype=torch.float32)
     model.load_state_dict(params_from_flax(flat))
     np.testing.assert_allclose(
         l2_regularization(model.named_parameters(), "resnet_50_dense",

@@ -3,9 +3,9 @@
 ``MetricsWriter``/``TBEventWriter`` against JAX's, and the chain
 ``train`` → ``export --experiment`` → ``evaluate --from-export``, whose
 metrics equal ``evaluate --experiment``'s, with ``detect --experiment``;
-the default backbone (ResNeXt-50) trains, and every multi-device or
-multi-process run raises naming A.7.  The flagship at 64 px, 3 shapes
-classes."""
+the default backbone (ResNeXt-50) trains, and the runs the port does not
+spread (``--spatial``, ``num_devices`` other than the number of ranks)
+raise naming A.7.  The flagship at 64 px, 3 shapes classes."""
 
 import dataclasses
 import json
@@ -23,6 +23,7 @@ from retinanet_tpu.utils.summaries import MetricsWriter as JaxWriter
 from retinanet_tpu_torch import config as tcfg
 from retinanet_tpu_torch import detect, evaluate, export, train
 from retinanet_tpu_torch.data.loaders.shapes import Shapes
+from retinanet_tpu_torch.parallel import distributed
 from retinanet_tpu_torch.train import CheckpointStore, Trainer
 from retinanet_tpu_torch.utils.summaries import MetricsWriter
 
@@ -219,9 +220,12 @@ def test_default_backbone_raises_naming_a6(tmp_path):
                                   "evaluate_data_parallel",
                                   "evaluate_spatial"])
 def test_distributed_runs_raise_naming_a7(case, tmp_path, monkeypatch):
+    """``--spatial`` (with ``--data-parallel`` too, which A.7's first part
+    ported) and a ``num_devices`` other than the ranks, more devices
+    than processes or fewer, raise naming A.7 (and ``torchrun``)."""
     if case.startswith("evaluate"):
-        flag = (["--data-parallel"] if case.endswith("parallel")
-                else ["--spatial", "2"])
+        flag = (["--data-parallel", "--spatial", "2"]
+                if case.endswith("parallel") else ["--spatial", "2"])
         with pytest.raises(SystemExit, match=r"ROADMAP A\.7"):
             evaluate.main(["--dataset", "shapes", "unused", "2", "64",
                            "--experiment", str(tmp_path), *flag])
@@ -234,9 +238,12 @@ def test_distributed_runs_raise_naming_a7(case, tmp_path, monkeypatch):
              "2"])
     elif case == "num_devices":
         config = config.replace(parallel=tcfg.ParallelConfig(num_devices=2))
-    else:
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7"):
+    else:  # two ranks, one device named
+        config = config.replace(parallel=tcfg.ParallelConfig(num_devices=1))
+        monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    match = r"ROADMAP A\.7" + ("" if case == "spatial"
+                               else r".*torchrun --nproc-per-node N")
+    with pytest.raises(NotImplementedError, match=match):
         Trainer(config, loader=Shapes(None, 2, (SIZE, SIZE)), device="cpu")
 
 

@@ -274,6 +274,31 @@ def test_restore_params_ignores_the_optimizer(tmp_path):
         store.restore(_tiny_state(0.0, 0), step=8)
 
 
+@pytest.mark.parametrize("restore", ["restore", "restore_params"])
+def test_explicit_step_restore_joins_the_write_in_flight(tmp_path,
+                                                         monkeypatch,
+                                                         restore):
+    """A restore of a given step right after this store saved it reads the
+    whole step, however slow the background write (here held back until
+    the restore has been called)."""
+    called, real_save = threading.Event(), torch.save
+
+    def slow_save(obj, path):
+        called.wait(timeout=5)
+        real_save(obj, path)
+
+    monkeypatch.setattr(torch, "save", slow_save)
+    store = CheckpointStore(str(tmp_path))
+    store.save(_tiny_state(3.0, 5))
+    threading.Timer(0.2, called.set).start()
+    if restore == "restore":
+        got = store.restore(_tiny_state(0.0, 0), step=5).params
+    else:
+        got = store.restore_params(_tiny_state(0.0, 0).params, step=5)
+    assert called.is_set()
+    assert torch.equal(got["b.bias"], torch.full((4,), 1.5))
+
+
 def test_average_checkpoints_serves_the_mean(tmp_path):
     """--average-checkpoints 2 of 1× and 3× parameters serves 2×, and
     raises "mutually exclusive" together with --step."""
